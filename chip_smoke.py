@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and exits non-zero:
+
+1. card   — print the card's name and power limit (nvidia-smi), build the
+            CUDA kernels of ``src/repro_torch/csrc`` with nvcc for sm_90a
+            (one nvcc per source, started together).
+2. kernels — hold each kernel against its plain PyTorch version on the card
+            with ``torch.equal`` at the main path's shapes (CT, DX, US chunks,
+            every selection value at one small shape), and time kernel, plain
+            version and (where one exists) a single PyTorch call computing
+            the same function, cold L2, CUDA events, median of 21.
+3. pipeline — de-identify a 256-slice CT, a DX and a US study from the port's
+            generator with ``DeidPipeline(device="cuda")``: the kernel path
+            must give payloads, compressed sizes, pixels and manifests equal
+            to the port's host path (numpy codec), the first payload of each
+            study must decode to its delivered pixels, and every kernel's
+            launch count over the run must be > 0. A recompress=False run of the US study drives
+            the scrub kernel. Prints the kernel path's span totals, MB/s per
+            modality for both paths (median of ROUNDS untraced runs each, in
+            alternating order) and the H2D / kernels / D2H / host-splice
+            split of one CT chunk.
+4. result — one JSON line listing every kernel, then the device line.
+
+Needs CUDA and the repository's ``src/`` beside this file; imports nothing of
+the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+# int32 ALU rate: Hopper's SM has 64 INT32 lanes to 128 FP32 lanes, so half
+# of the 67 TFLOP/s float32 (non-tensor) peak
+INT32_OPS_PER_S = 67e12 / 2
+REPS = 21
+ROUNDS = 3  # timed pipeline runs of each path per study
+CT_SLICES = 256
+
+KERNELS = {
+    "fused": ("src/repro_torch/csrc/fused.cu", "src/repro/kernels/fused/fused.py:117"),
+    "rice_prepass": ("src/repro_torch/csrc/entropy.cu", "src/repro/kernels/jls/entropy.py:59"),
+    "rice_len_rem": ("src/repro_torch/csrc/entropy.cu", "src/repro/kernels/jls/entropy.py:96"),
+    "scrub": ("src/repro_torch/csrc/scrub.cu", "src/repro/kernels/scrub/scrub.py:65"),
+}
+
+
+_T0 = time.perf_counter()
+
+
+def log(*a) -> None:
+    print(f"[{time.perf_counter() - _T0:7.1f}s]", *a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------- timing
+_FLUSH = None
+
+
+def time_ms(fn, reps: int = REPS) -> float:
+    """Median device time of ``fn`` over ``reps`` launches, each with a cold
+    L2 (a 256 MB buffer is rewritten between launches, outside the window)."""
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        _FLUSH.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound(nbytes: int, nops: int):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------- phase 2
+def check_kernels(us_shape) -> dict:
+    from repro_torch.dicom import codec
+    from repro_torch.kernels.fused.ops import fused_scrub_residuals
+    from repro_torch.kernels.fused.ref import fused_ref
+    from repro_torch.kernels.jls import entropy
+    from repro_torch.kernels.scrub.ops import pack_rects, scrub_images
+    from repro_torch.kernels.scrub.ref import rect_mask, scrub_ref
+
+    rng = np.random.default_rng(11)
+    err = {name: 0 for name in KERNELS}
+
+    def compare(name, got, want, what):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+            diff = (got.long() - want.long()).abs().max().item() if got.shape == want.shape else -1
+            raise AssertionError(f"{name} kernel != plain version on {what} (max |diff| {diff})")
+        err[name] = max(err[name], int((got.long() - want.long()).abs().max().item()))
+
+    def case(what, images_np, rect_lists, sv=1):
+        images = torch.from_numpy(images_np).cuda()
+        rects = torch.from_numpy(pack_rects(rect_lists)).cuda()
+        bits = images_np.dtype.itemsize * 8
+        res = fused_scrub_residuals(images, rects, sv=sv)
+        compare("fused", res, fused_ref(images, rects, sv, bits), what)
+        u, rs = entropy.rice_prepass(res)
+        u_p, rs_p = entropy.rice_prepass_plain(res)
+        compare("rice_prepass", u, u_p, what)
+        compare("rice_prepass", rs, rs_p, what + " row sums")
+        H, W = images_np.shape[1:]
+        ks = [codec._rice_k_from_sum(int(r.sum(dtype=np.int64)), H * W) for r in rs.cpu().numpy()]
+        ks_t = torch.tensor(ks, dtype=torch.int32, device="cuda")
+        lens, rem = entropy.rice_len_rem(u, ks_t)
+        lens_p, rem_p = entropy.rice_len_rem_plain(u, ks_t)
+        compare("rice_len_rem", lens, lens_p, what)
+        compare("rice_len_rem", rem, rem_p, what + " remainders")
+        compare("scrub", scrub_images(images, rects), scrub_ref(images, rects), what)
+        log(f"  equal: {what}")
+        return images, rects, res, u, ks_t
+
+    def full_range(shape, dtype):
+        return rng.integers(0, np.iinfo(dtype).max + 1, size=shape, dtype=np.int64).astype(dtype)
+
+    ct_rects = [(256, 0, 256, 22), (300, 22, 212, 80)]
+    ct = (rng.normal(1200, 300, size=(32, 512, 512))).clip(0, 4095).astype(np.uint16)
+    case("CT (32,512,512) u16, 0 rects", ct, [[] for _ in range(32)])
+    ct_case = case("CT (32,512,512) u16, 2 rects", ct, [ct_rects] * 32)
+    for H, W in ((2500, 2048), (2022, 2022)):
+        dx_rects = [(0, 0, W, 40), (W - 560, 44, 560, 60)]
+        case(f"DX (4,{H},{W}) u16 full range, 2 rects", full_range((4, H, W), np.uint16), [dx_rects] * 4)
+    uH, uW = us_shape
+    us_rects = [(0, 0, uW, 32), (uW - 200, 36, 200, 50), (0, uH - 20, uW, 20)]
+    case(f"US (32,{uH},{uW}) u8, 3 rects", full_range((32, uH, uW), np.uint8), [us_rects] * 32)
+    for dtype in (np.uint8, np.uint16):
+        small = full_range((2, 70, 90), dtype)
+        for sv in range(1, 8):
+            case(f"sv={sv} (2,70,90) {np.dtype(dtype).name}", small,
+                 [[(5, 5, 30, 20), (-3, -3, 10, 10)], [(40, 30, 200, 200)]], sv=sv)
+    # k = 0 (a constant 2^15 plane has all-zero residuals) and Rice escapes
+    # (a constant plane with full-range outliers: q > 23 at its small k)
+    esc = np.full((2, 64, 96), 1 << 15, np.uint16)
+    esc[1] = 100
+    esc[1, 7, 9] = 65535
+    esc[1, 40, 50] = 0
+    case("k=0 and escapes (2,64,96) u16", esc, [[], []])
+    log("kernels: every kernel equals its plain version on every case")
+
+    # timing at the CT chunk shape of the main path (32,512,512) uint16, R=2
+    images, rects, res, u, ks_t = ct_case
+    N, H, W = images.shape
+    npx, R = N * H * W, rects.shape[1]
+    mask = rect_mask(rects, H, W)
+    view16 = images.view(torch.int16)
+    timed = {
+        "fused": (lambda: fused_scrub_residuals(images, rects, sv=1),
+                  lambda: fused_ref(images, rects, 1, 16), None,
+                  npx * (2 + 4) + rects.numel() * 4, npx * (8 * R + 16)),
+        "rice_prepass": (lambda: entropy.rice_prepass(res),
+                         lambda: entropy.rice_prepass_plain(res), None,
+                         npx * (4 + 4) + N * H * 4, npx * 5),
+        "rice_len_rem": (lambda: entropy.rice_len_rem(u, ks_t),
+                         lambda: entropy.rice_len_rem_plain(u, ks_t), None,
+                         npx * (4 + 8) + N * 4, npx * 8),
+        "scrub": (lambda: scrub_images(images, rects),
+                  lambda: scrub_ref(images, rects),
+                  lambda: view16.masked_fill(mask, 0),
+                  npx * (2 + 2) + rects.numel() * 4, npx * (8 * R + 1)),
+    }
+    rows = {}
+    for name, (kern, plain, library, nbytes, nops) in timed.items():
+        b_ms, b_by = bound(nbytes, nops)
+        rows[name] = {
+            "ms": time_ms(kern),
+            "plain_ms": time_ms(plain),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": time_ms(library) if library is not None else None,
+            "max_abs_err": err[name],
+            "shape": f"({N},{H},{W}) uint16, R={R}",
+        }
+        log(f"time {name}: {json.dumps(rows[name])}")
+    return rows
+
+
+# ---------------------------------------------------------------- phase 3
+def chunk_split(study) -> dict:
+    """H2D / kernels / D2H / host splice of one 32-slice CT chunk, driven
+    through the same ops the executor calls."""
+    from repro_torch.dicom import codec
+    from repro_torch.kernels.fused.ops import fused_scrub_residuals
+    from repro_torch.kernels.jls import entropy
+    from repro_torch.kernels.scrub.ops import pack_rects
+
+    ds = study.datasets[:32]
+    H, W = ds[0].pixels.shape
+    rects_np = pack_rects([study_rects(study)] * len(ds), R=4)
+    host = torch.empty((len(ds), H, W), dtype=torch.uint16, pin_memory=True)
+    host.numpy()[...] = np.stack([d.pixels for d in ds])
+    rects_h = torch.from_numpy(rects_np).pin_memory()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    best = None
+    for _ in range(5):
+        torch.cuda.synchronize()
+        ev[0].record()
+        images = host.to("cuda", non_blocking=True)
+        rects = rects_h.to("cuda", non_blocking=True)
+        ev[1].record()
+        res = fused_scrub_residuals(images, rects, sv=1)
+        u, rs = entropy.rice_prepass(res)
+        ev[2].record()
+        rs_np = rs.cpu().numpy()
+        ks = np.array([codec._rice_k_from_sum(int(r.sum(dtype=np.int64)), H * W) for r in rs_np],
+                      np.int32)
+        ev[3].record()
+        lens, rem = entropy.rice_len_rem(u, ks)
+        ev[4].record()
+        u_np, lens_np, rem_np = u.cpu().numpy(), lens.cpu().numpy(), rem.cpu().numpy()
+        ev[5].record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(len(ds)):
+            codec.rice_pack(codec.rice_plan_from_prepass(
+                u_np[j].reshape(-1), int(ks[j]), lens_np[j], rem_np[j]))
+        splice = (time.perf_counter() - t0) * 1e3
+        split = {
+            "h2d_ms": ev[0].elapsed_time(ev[1]),
+            "fused_prepass_ms": ev[1].elapsed_time(ev[2]),
+            "rs_sync_and_k_ms": ev[2].elapsed_time(ev[3]),
+            "len_rem_ms": ev[3].elapsed_time(ev[4]),
+            "d2h_u_lens_rem_ms": ev[4].elapsed_time(ev[5]),
+            "host_splice_serial_ms": splice,
+        }
+        if best is None or sum(split.values()) < sum(best.values()):
+            best = split
+    return best
+
+
+def study_rects(study):
+    from repro_torch.core import scripts
+    from repro_torch.core.rules import parse_scrub_script
+
+    d = study.device
+    return list(parse_scrub_script(scripts.DEFAULT_SCRUB_SCRIPT).get(
+        (d.modality, d.make, d.model, d.rows, d.cols)) or ())
+
+
+class _WallClock:
+    def now(self) -> float:
+        return time.perf_counter()
+
+
+def run_pipeline(studies, pseudo) -> None:
+    from repro_torch.core import DeidPipeline, build_request
+    from repro_torch.dicom import codec
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.obs.trace import Tracer
+
+    def drive(pipe, study):
+        captured = []
+        run = pipe.executor.run
+
+        def capture(items, **kw):
+            outs = run(items, **kw)
+            captured.extend(outs)
+            return outs
+
+        pipe.executor.run = capture
+        req = build_request(pseudo, study.accession, study.mrn)
+        t0 = time.perf_counter()
+        result = pipe.run_study(study, req, "w0")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        pipe.executor.close()
+        return result, captured, secs
+
+    def host_pipeline(rc):
+        pipe = DeidPipeline(device="cuda", recompress=rc)
+        pipe.executor.use_kernel = False
+        return pipe
+
+    jobs = [(s, True) for s in studies] + [(studies[-1], False)]
+    # warm-up outside the counted window: CUDA context, kernel loads
+    drive(DeidPipeline(device="cuda"), studies[-1])
+    tracers = [Tracer(_WallClock()) for _ in jobs]
+    reset_launches()
+    kernel_runs = [drive(DeidPipeline(device="cuda", recompress=rc, tracer=tr), s)
+                   for (s, rc), tr in zip(jobs, tracers)]
+    launches = dict(LAUNCHES)
+    log(f"main path launches: {json.dumps(launches)}")
+    host_runs = [drive(host_pipeline(rc), s) for s, rc in jobs]
+
+    for (s, rc), (k_res, k_outs, _), (h_res, h_outs, _), tr in zip(
+            jobs, kernel_runs, host_runs, tracers):
+        label = f"{s.modality} x{len(s.datasets)} {s.datasets[0].pixels.shape} recompress={rc}"
+        assert k_res.manifest.to_json() == h_res.manifest.to_json(), label
+        assert len(k_outs) == len(h_outs) == len(s.datasets), label
+        for a, b in zip(k_outs, h_outs):
+            assert a.payload == b.payload, label
+            assert np.array_equal(a.pixels, b.pixels), label
+        if rc:
+            # the decoder is a slow host oracle (a sequential parse once a
+            # stream holds Rice escapes, minutes for a 512x512 plane): the
+            # first instance of each study, which carries the blanked text
+            assert np.array_equal(codec.decode(k_outs[0].payload), k_outs[0].pixels), label
+        for a, b in zip(k_res.delivered, h_res.delivered):
+            assert a.elements == b.elements and np.array_equal(a.pixels, b.pixels), label
+        if rc:
+            assert all(e.compressed_bytes > 0 for e in k_res.manifest.entries), label
+        spans = {name: sum(sp.duration for sp in tr.spans(name))
+                 for name in ("pipeline.run_study", "kernel.dispatch", "kernel.entropy_code")}
+        log(f"pipeline {label}: payloads, pixels and manifest equal; kernel path spans (s) "
+            f"{json.dumps(spans)}")
+    del kernel_runs, host_runs
+
+    # throughput, tracing off: ROUNDS runs of each path per study, the order
+    # of the two paths alternating from round to round
+    secs = {(j, path): [] for j in range(len(jobs)) for path in ("kernel", "host")}
+    for r in range(ROUNDS):
+        for j, (s, rc) in enumerate(jobs):
+            order = ("kernel", "host") if r % 2 == 0 else ("host", "kernel")
+            for path in order:
+                pipe = DeidPipeline(device="cuda", recompress=rc) if path == "kernel" \
+                    else host_pipeline(rc)
+                secs[(j, path)].append(drive(pipe, s)[2])
+    for j, (s, rc) in enumerate(jobs):
+        mb = sum(d.pixels.nbytes for d in s.datasets) / 1e6
+        rates = {path: sorted(mb / t for t in secs[(j, path)]) for path in ("kernel", "host")}
+        log(f"throughput {s.modality} x{len(s.datasets)} {s.datasets[0].pixels.shape} "
+            f"recompress={rc}: {mb:.1f} MB; MB/s median kernel path "
+            f"{statistics.median(rates['kernel'])} host path {statistics.median(rates['host'])}; "
+            f"all runs {json.dumps(rates)}")
+    for name in KERNELS:
+        assert launches[name] > 0, f"kernel {name} never launched on the main path"
+    return launches
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: CUDA is not available; this script runs only on a card")
+    from repro_torch.core import PseudonymService, TrustMode
+    from repro_torch.dicom.devices import DeviceKey
+    from repro_torch.dicom.generator import StudyGenerator
+    from repro_torch.kernels.build import build_all
+
+    t_start = time.perf_counter()
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    report = build_all()
+    log(f"build: {time.perf_counter() - t0:.2f} s for {len(report)} sources")
+    for name, rep in report.items():
+        for line in rep["log"].splitlines():
+            if "registers" in line or "error" in line.lower():
+                log(f"  {name}: {line.strip()}")
+
+    gen = StudyGenerator(seed=7)
+    ct = gen.gen_study("SMOKE-CT", device=DeviceKey("CT", "GE", "Discovery", 512, 512),
+                       n_images=CT_SLICES)
+    dx = gen.gen_study("SMOKE-DX", device=DeviceKey("DX", "GE", "Definium", 2500, 2048),
+                       n_images=4)
+    us = gen.gen_study("SMOKE-US", modality="US", n_images=32)
+    log(f"studies: CT {len(ct.datasets)}x{ct.datasets[0].pixels.shape}, "
+        f"DX {len(dx.datasets)}x{dx.datasets[0].pixels.shape}, "
+        f"US {len(us.datasets)}x{us.datasets[0].pixels.shape} {us.device.id()}")
+
+    rows = check_kernels(us.datasets[0].pixels.shape)
+    pseudo = PseudonymService("IRB-SMOKE", TrustMode.POST_IRB, key=b"s" * 32)
+    launches = run_pipeline([ct, dx, us], pseudo)
+    split = chunk_split(ct)
+    log(f"CT chunk (32,512,512) split: {json.dumps(split)}")
+
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches[name], "equal": True, **rows[name]})
+    log(f"elapsed: {time.perf_counter() - t_start:.1f} s")
+    print(card_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,23 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+  scrub   - batched PHI rectangle blanking (``csrc/scrub.cu``)
+  fused   - single-pass scrub + JPEG-Lossless residuals (``csrc/fused.cu``)
+  jls     - Golomb-Rice plan pre-pass: zigzag + row sums, code lengths +
+            remainders (``csrc/entropy.cu``)
+
+A public op takes torch tensors: on a CUDA tensor it launches its kernel
+(or raises), on a CPU tensor it runs the plain PyTorch version. Each launch
+adds one to its entry of :data:`LAUNCHES`, so a run can show which kernels
+the main path went through.
+"""
+from typing import Dict
+
+LAUNCHES: Dict[str, int] = {"fused": 0, "rice_prepass": 0, "rice_len_rem": 0, "scrub": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+__all__ = ["LAUNCHES", "reset_launches"]

@@ -6,6 +6,12 @@ import pytest
 from repro.dicom.generator import StudyGenerator
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips where torch.cuda.is_available() is false"
+    )
+
+
 @pytest.fixture(scope="session")
 def gen() -> StudyGenerator:
     return StudyGenerator(seed=1234)

@@ -1,0 +1,100 @@
+"""The port's CUDA kernels and its kernel path on the card, held against the
+plain PyTorch versions and the host path (exact).
+
+Every test here is marked ``gpu`` and skips where no card is present. The
+file imports nothing of JAX or of the JAX package, so it runs on a machine
+with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import DeidPipeline, PseudonymService, TrustMode, build_request
+from repro_torch.core.batch import BatchedDeidExecutor
+from repro_torch.dicom.generator import StudyGenerator
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.fused.ops import fused_scrub_residuals
+from repro_torch.kernels.fused.ref import fused_ref
+from repro_torch.kernels.jls import entropy
+from repro_torch.kernels.scrub.ops import pack_rects, scrub_images
+from repro_torch.kernels.scrub.ref import scrub_ref
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda:0")
+
+
+def _full_range(rng, shape, dtype):
+    return rng.integers(0, np.iinfo(dtype).max + 1, size=shape).astype(dtype)
+
+
+def _mk_items(rng, n):
+    items = []
+    for i in range(n):
+        shape = (60, 80) if i % 3 else (48, 48)
+        dtype = np.uint16 if i % 2 else np.uint8
+        items.append((_full_range(rng, shape, dtype), [(4, 4, 24, 8)] if i % 4 else []))
+    return items
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_kernels_equal_plain_versions(rng, cuda, dtype):
+    imgs = _full_range(rng, (3, 70, 300), dtype)
+    rl = [[(5, 5, 30, 20), (-3, -3, 10, 10)], [(40, 30, 500, 200)], []]
+    images = torch.from_numpy(imgs).to(cuda)
+    rects = torch.from_numpy(pack_rects(rl)).to(cuda)
+    bits = imgs.dtype.itemsize * 8
+    before = dict(LAUNCHES)
+    for sv in range(1, 8):
+        res = fused_scrub_residuals(images, rects, sv=sv)
+        assert torch.equal(res, fused_ref(images, rects, sv, bits))
+    u, rs = entropy.rice_prepass(res)
+    u_p, rs_p = entropy.rice_prepass_plain(res)
+    assert torch.equal(u, u_p) and torch.equal(rs, rs_p)
+    ks = torch.tensor([0, 4, 30], dtype=torch.int32, device=cuda)
+    for a, b in zip(entropy.rice_len_rem(u, ks), entropy.rice_len_rem_plain(u, ks)):
+        assert torch.equal(a, b)
+    assert torch.equal(scrub_images(images, rects), scrub_ref(images, rects))
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused"] - before["fused"] == 7
+    assert all(LAUNCHES[k] - before[k] == 1 for k in ("rice_prepass", "rice_len_rem", "scrub"))
+
+
+@pytest.mark.parametrize("recompress", [True, False])
+def test_executor_kernel_path_equals_host_path(rng, cuda, recompress):
+    items = _mk_items(rng, n=9)
+    before = dict(LAUNCHES)
+
+    def run(ex):
+        return ex.run([(px.copy(), list(rl)) for px, rl in items], sv=2, recompress=recompress)
+
+    ex = BatchedDeidExecutor(max_batch=4, pipeline_depth=3, device=cuda)
+    outs = run(ex)
+    ref = run(BatchedDeidExecutor(max_batch=4, use_kernel=False, device=cuda))
+    assert ex.use_kernel is True
+    assert [o.payload for o in outs] == [o.payload for o in ref]
+    assert [o.pixels.tobytes() for o in outs] == [o.pixels.tobytes() for o in ref]
+    names = ("fused", "rice_prepass", "rice_len_rem") if recompress else ("scrub",)
+    assert all(LAUNCHES[k] > before[k] for k in names)
+
+
+@pytest.mark.parametrize("modality", ["CT", "US"])
+def test_pipeline_on_card_equals_host_path(cuda, modality):
+    study = StudyGenerator(seed=5).gen_study(f"GPU-{modality}", modality=modality, n_images=5)
+    pseudo = PseudonymService("IRB-G", TrustMode.POST_IRB, key=b"g" * 32)
+    req = build_request(pseudo, study.accession, study.mrn)
+    card = DeidPipeline()
+    host = DeidPipeline(device=cuda)
+    host.executor.use_kernel = False
+    got, want = card.process_study(study, req), host.process_study(study, req)
+    assert card.executor.use_kernel is True
+    assert got[1].to_json() == want[1].to_json()
+    for a, b in zip(got[0], want[0]):
+        assert a.elements == b.elements and np.array_equal(a.pixels, b.pixels)
