@@ -10,19 +10,31 @@ Phases, in order; any failure raises and exits non-zero:
             (one nvcc per source, started together).
 2. kernels — hold each kernel against its plain PyTorch version on the card
             with ``torch.equal`` at the main path's shapes (CT, DX, US chunks,
-            every selection value at one small shape), and time kernel, plain
-            version and (where one exists) a single PyTorch call computing
-            the same function, cold L2, CUDA events, median of 21.
-3. pipeline — de-identify a 256-slice CT, a DX and a US study from the port's
-            generator with ``DeidPipeline(device="cuda")``: the kernel path
-            must give payloads, compressed sizes, pixels and manifests equal
-            to the port's host path (numpy codec), the first payload of each
-            study must decode to its delivered pixels, and every kernel's
-            launch count over the run must be > 0. A recompress=False run of the US study drives
-            the scrub kernel. Prints the kernel path's span totals, MB/s per
-            modality for both paths (median of ROUNDS untraced runs each, in
-            alternating order) and the H2D / kernels / D2H / host-splice
-            split of one CT chunk.
+            every selection value at one small shape; for the two detector
+            kernels the unknown-device CT and DX chunks, a float32 stack, a
+            (16, 64) tile and the float32 threshold straddle 2457.0001), and
+            time kernel, plain version and (where one exists) a single
+            PyTorch call computing the same function, cold L2, CUDA events,
+            median of 21.
+3. pipeline — two paths, each driven with the launch counts set to 0 just
+            before it and read just after:
+            the cold de-identification of a 256-slice CT, a DX and a US study
+            (no detector; then US with recompress=False, the scrub kernel);
+            and the detector path: registry_first on a 256-slice and a
+            4-image unknown-device study (CT 320x512, DX 520x648), union on
+            the CT, DX and US studies, then the post-scrub audit
+            (``audit_dataset(device="cuda")``) of every raw and delivered
+            instance of the two unknown-device studies.
+            The kernel path must give payloads, compressed sizes, pixels,
+            manifests, detection reports and detector counters equal to the
+            port's host path (numpy oracle and codec); the first payload of
+            each study must decode to its delivered pixels; the audit's flags
+            must equal the CPU's, flag no delivered instance and at least one
+            raw one; every kernel of a path must have launched. Prints the
+            kernel path's span totals, MB/s for both paths (median of ROUNDS
+            untraced runs each, in alternating order), the H2D / kernels /
+            D2H / host-splice split of one CT chunk, and the detection
+            upload beside the fused upload of one unknown-CT chunk.
 4. result — one JSON line listing every kernel, then the device line.
 
 Needs CUDA and the repository's ``src/`` beside this file; imports nothing of
@@ -30,6 +42,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -43,18 +56,25 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12     # float32 outside the tensor cores (data sheet)
 # int32 ALU rate: Hopper's SM has 64 INT32 lanes to 128 FP32 lanes, so half
-# of the 67 TFLOP/s float32 (non-tensor) peak
-INT32_OPS_PER_S = 67e12 / 2
+# of the float32 peak
+INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 REPS = 21
 ROUNDS = 3  # timed pipeline runs of each path per study
 CT_SLICES = 256
+MAIN_KERNELS = ("fused", "rice_prepass", "rice_len_rem", "scrub")
+DETECTOR_KERNELS = ("textdetect", "phi_detect")
 
 KERNELS = {
     "fused": ("src/repro_torch/csrc/fused.cu", "src/repro/kernels/fused/fused.py:117"),
     "rice_prepass": ("src/repro_torch/csrc/entropy.cu", "src/repro/kernels/jls/entropy.py:59"),
     "rice_len_rem": ("src/repro_torch/csrc/entropy.cu", "src/repro/kernels/jls/entropy.py:96"),
     "scrub": ("src/repro_torch/csrc/scrub.cu", "src/repro/kernels/scrub/scrub.py:65"),
+    "textdetect": ("src/repro_torch/csrc/textdetect.cu",
+                   "src/repro/kernels/textdetect/textdetect.py:67"),
+    "phi_detect": ("src/repro_torch/csrc/phi_detect.cu",
+                   "src/repro/kernels/phi_detect/phi_detect.py:45"),
 }
 
 
@@ -96,8 +116,8 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, nops: int):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / INT32_OPS_PER_S * 1e3
+def bound(nbytes: int, nops: int, ops_per_s: float = INT32_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -111,7 +131,7 @@ def check_kernels(us_shape) -> dict:
     from repro_torch.kernels.scrub.ref import rect_mask, scrub_ref
 
     rng = np.random.default_rng(11)
-    err = {name: 0 for name in KERNELS}
+    err = {name: 0 for name in MAIN_KERNELS}
 
     def compare(name, got, want, what):
         torch.cuda.synchronize()
@@ -205,6 +225,94 @@ def check_kernels(us_shape) -> dict:
     return rows
 
 
+def check_detector_kernels(us_shape) -> dict:
+    """textdetect (all three outputs) and phi_detect against their plain
+    versions, exact, at the detector path's chunk shapes; timed at the CT
+    chunk."""
+    from repro_torch.kernels.phi_detect.ops import DEFAULT_THRESH_FRAC, edge_density
+    from repro_torch.kernels.phi_detect.ref import edge_density_ref
+    from repro_torch.kernels.textdetect.ops import BINARIZE_FRAC, tile_profiles
+    from repro_torch.kernels.textdetect.ref import tile_profiles_torch
+
+    rng = np.random.default_rng(12)
+    err = {name: 0.0 for name in DETECTOR_KERNELS}
+
+    def compare(name, got, want, what):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+            diff = (got.double() - want.double()).abs().max().item() if got.shape == want.shape else -1
+            raise AssertionError(f"{name} kernel != plain version on {what} (max |diff| {diff})")
+        err[name] = max(err[name], (got.double() - want.double()).abs().max().item())
+
+    def case(what, imgs_np, ceiling, tile=(32, 128), thresh=None):
+        images = torch.from_numpy(imgs_np).cuda()
+        t = ceiling * BINARIZE_FRAC if thresh is None else thresh
+        for got, want in zip(tile_profiles(images, thresh=t, tile=tile),
+                             tile_profiles_torch(images, t, tile)):
+            compare("textdetect", got, want, what)
+        et = ceiling * DEFAULT_THRESH_FRAC
+        compare("phi_detect", edge_density(images, thresh=et, tile=tile),
+                edge_density_ref(images, et, tile), what)
+        log(f"  equal: {what}")
+        return images
+
+    def banners(shape, dtype, ceiling, full_range=False):
+        """Anatomy, a glyph band of 1-px strokes, and a bright last column."""
+        if full_range:
+            imgs = rng.integers(0, int(ceiling) + 1, size=shape, dtype=np.int64)
+        else:
+            imgs = rng.normal(ceiling * 0.3, ceiling * 0.07, size=shape).clip(0, ceiling)
+        imgs = imgs.astype(dtype)
+        imgs[:, 8:30, 40::3] = ceiling
+        imgs[:, :, -1] = ceiling
+        return imgs
+
+    ct = case("CT (32,512,512) u16", banners((32, 512, 512), np.uint16, 4095.0), 4095.0)
+    case("CT tile (16,64) (32,512,512) u16", banners((32, 512, 512), np.uint16, 4095.0), 4095.0,
+         tile=(16, 64))
+    # a tile area that is not a power of two: the quotient must be IEEE
+    case("CT tile (24,100) (32,512,512) u16", banners((32, 512, 512), np.uint16, 4095.0), 4095.0,
+         tile=(24, 100))
+    case("unknown CT (32,320,512) u16", banners((32, 320, 512), np.uint16, 4095.0), 4095.0)
+    straddle = rng.integers(2450, 2465, size=(32, 320, 512)).astype(np.uint16)
+    case("thresh 2457.0001 (32,320,512) u16", straddle, 4095.0, thresh=2457.0001)
+    case("unknown DX (4,520,648) u16", banners((4, 520, 648), np.uint16, 4095.0), 4095.0)
+    case("DX (4,2500,2048) u16 full range", banners((4, 2500, 2048), np.uint16, 65535.0, True),
+         65535.0)
+    uH, uW = us_shape
+    case(f"US (32,{uH},{uW}) u8 full range", banners((32, uH, uW), np.uint8, 255.0, True), 255.0)
+    case("float32 (8,512,512)", banners((8, 512, 512), np.float32, 1.0), 1.0)
+    log("detector kernels: each equals its plain version on every case")
+
+    # timing at the CT chunk of the main path, (32,512,512) uint16, (32,128)
+    N, H, W = ct.shape
+    th, tw = 32, 128
+    npx, tiles = N * H * W, N * (H // th) * (W // tw)
+    t, et = 4095.0 * BINARIZE_FRAC, 4095.0 * DEFAULT_THRESH_FRAC
+    timed = {
+        # compare, column count, row count, run add/multiply/max per pixel
+        "textdetect": (lambda: tile_profiles(ct, thresh=t), lambda: tile_profiles_torch(ct, t, (th, tw)),
+                       npx * 2 + tiles * (th + tw + 1) * 4, npx * 6, INT32_OPS_PER_S),
+        # subtract, abs, compare, count per pixel
+        "phi_detect": (lambda: edge_density(ct, thresh=et), lambda: edge_density_ref(ct, et, (th, tw)),
+                       npx * 2 + tiles * 4, npx * 4, FP32_OPS_PER_S),
+    }
+    rows = {}
+    for name, (kern, plain, nbytes, nops, rate) in timed.items():
+        b_ms, b_by = bound(nbytes, nops, rate)
+        rows[name] = {
+            "ms": time_ms(kern),
+            "plain_ms": time_ms(plain),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,  # no single PyTorch call computes either function
+            "max_abs_err": err[name],
+            "shape": f"({N},{H},{W}) uint16, tile ({th},{tw})",
+        }
+        log(f"time {name}: {json.dumps(rows[name])}")
+    return rows
+
+
 # ---------------------------------------------------------------- phase 3
 def chunk_split(study) -> dict:
     """H2D / kernels / D2H / host splice of one 32-slice CT chunk, driven
@@ -267,93 +375,213 @@ def study_rects(study):
         (d.modality, d.make, d.model, d.rows, d.cols)) or ())
 
 
+def detect_split(study) -> dict:
+    """The detection pass of one 32-slice unknown-CT chunk beside the fused
+    pass's upload of the same planes: both upload the chunk (the executor
+    does the same, detection first and synchronously)."""
+    from repro_torch.detect import DetectorPolicy, policy_thresh
+    from repro_torch.kernels.fused.ops import fused_scrub_residuals
+    from repro_torch.kernels.scrub.ops import pack_rects
+    from repro_torch.kernels.textdetect.ops import row_hits
+
+    ds = study.datasets[:32]
+    H, W = ds[0].pixels.shape
+    thresh = policy_thresh(ds[0], DetectorPolicy())
+    host = torch.empty((len(ds), H, W), dtype=torch.uint16, pin_memory=True)
+    host.numpy()[...] = np.stack([d.pixels for d in ds])
+    rects_h = torch.from_numpy(pack_rects([[(0, 0, W, 24)]] * len(ds), R=4)).pin_memory()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    best = None
+    for _ in range(5):
+        torch.cuda.synchronize()
+        ev[0].record()
+        images = host.to("cuda", non_blocking=True)
+        ev[1].record()
+        hits = row_hits(images, thresh=thresh)
+        ev[2].record()
+        hits.cpu()
+        ev[3].record()
+        images = host.to("cuda", non_blocking=True)
+        rects = rects_h.to("cuda", non_blocking=True)
+        ev[4].record()
+        fused_scrub_residuals(images, rects, sv=1)
+        ev[5].record()
+        torch.cuda.synchronize()
+        split = {
+            "detect_h2d_ms": ev[0].elapsed_time(ev[1]),
+            "textdetect_and_row_sum_ms": ev[1].elapsed_time(ev[2]),
+            "row_hits_d2h_ms": ev[2].elapsed_time(ev[3]),
+            "fused_h2d_ms": ev[3].elapsed_time(ev[4]),
+            "fused_ms": ev[4].elapsed_time(ev[5]),
+        }
+        if best is None or sum(split.values()) < sum(best.values()):
+            best = split
+    return best
+
+
 class _WallClock:
     def now(self) -> float:
         return time.perf_counter()
 
 
-def run_pipeline(studies, pseudo) -> None:
-    from repro_torch.core import DeidPipeline, build_request
+def make_pipeline(path: str, rc: bool = True, mode=None, tracer=None):
+    """A ``DeidPipeline`` on the card: the kernel path, or the host path
+    (numpy detector oracle and codec)."""
+    from repro_torch.core import DeidPipeline
+    from repro_torch.detect import DetectorPolicy
+
+    policy = None if mode is None else DetectorPolicy(mode=mode)
+    pipe = DeidPipeline(device="cuda", recompress=rc, detector_policy=policy, tracer=tracer)
+    if path == "host":
+        pipe.executor.use_kernel = False
+    return pipe
+
+
+def drive(pipe, study, pseudo):
+    """One ``run_study``: its result, the executor's outputs, the detection
+    reports, the detector counters and the wall seconds."""
+    from repro_torch.core import build_request
+    from repro_torch.detect.report import DetectStats
+
+    captured, reports = [], []
+    run, scrub_study = pipe.executor.run, pipe.scrub.scrub_study
+
+    def capture(items, **kw):
+        outs = run(items, **kw)
+        captured.extend(outs)
+        return outs
+
+    def capture_reports(datasets, executor):
+        slots = scrub_study(datasets, executor)
+        reports.extend(None if r is None or r.detection is None else dataclasses.asdict(r.detection)
+                       for r, _ in slots)
+        return slots
+
+    pipe.executor.run, pipe.scrub.scrub_study = capture, capture_reports
+    req = build_request(pseudo, study.accession, study.mrn)
+    t0 = time.perf_counter()
+    result = pipe.run_study(study, req, "w0")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    pipe.executor.close()
+    stats = {f: getattr(pipe.scrub.detect_stats, f) for f in DetectStats._FIELDS}
+    return result, captured, reports, stats, secs
+
+
+def job_label(job) -> str:
+    s, rc, mode = job
+    return (f"{s.modality} x{len(s.datasets)} {s.datasets[0].pixels.shape} {s.device.id()} "
+            f"recompress={rc} detector={mode or 'none'}")
+
+
+def check_equal(job, k_run, h_run, tracer) -> None:
+    """The kernel path's run of ``job`` against the host path's, exact."""
     from repro_torch.dicom import codec
+
+    s, rc, mode = job
+    label = job_label(job)
+    k_res, k_outs, k_rep, k_stats, _ = k_run
+    h_res, h_outs, h_rep, h_stats, _ = h_run
+    assert k_res.manifest.to_json() == h_res.manifest.to_json(), label
+    assert len(k_outs) == len(h_outs) == len(s.datasets), label
+    for a, b in zip(k_outs, h_outs):
+        assert a.payload == b.payload, label
+        assert np.array_equal(a.pixels, b.pixels), label
+    if rc:
+        # the decoder is a slow host oracle (a sequential parse once a
+        # stream holds Rice escapes, minutes for a 512x512 plane): the
+        # first instance of each study, which carries the blanked text
+        assert np.array_equal(codec.decode(k_outs[0].payload), k_outs[0].pixels), label
+    for a, b in zip(k_res.delivered, h_res.delivered):
+        assert a.elements == b.elements and np.array_equal(a.pixels, b.pixels), label
+    if rc:
+        assert all(e.compressed_bytes > 0 for e in k_res.manifest.entries), label
+    assert k_rep == h_rep and k_stats == h_stats, label
+    if mode is not None:
+        assert k_stats["detector_runs"] == len(s.datasets) and k_stats["detected"] > 0, label
+    spans = {name: sum(sp.duration for sp in tracer.spans(name))
+             for name in ("pipeline.run_study", "kernel.detect_dispatch", "kernel.dispatch",
+                          "kernel.entropy_code")}
+    log(f"pipeline {label}: payloads, pixels, manifest, detection reports and counters equal "
+        f"{json.dumps(k_stats)}; kernel path spans (s) {json.dumps(spans)}")
+
+
+def run_path(name, jobs, pseudo, kernels, during=None):
+    """Drive ``jobs`` on the kernel path with every launch count set to 0
+    just before and read just after (``during`` runs inside that window on
+    the kernel runs), then on the host path, and hold the two equal.
+    Returns the launch counts and what ``during`` returned."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.obs.trace import Tracer
 
-    def drive(pipe, study):
-        captured = []
-        run = pipe.executor.run
-
-        def capture(items, **kw):
-            outs = run(items, **kw)
-            captured.extend(outs)
-            return outs
-
-        pipe.executor.run = capture
-        req = build_request(pseudo, study.accession, study.mrn)
-        t0 = time.perf_counter()
-        result = pipe.run_study(study, req, "w0")
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        pipe.executor.close()
-        return result, captured, secs
-
-    def host_pipeline(rc):
-        pipe = DeidPipeline(device="cuda", recompress=rc)
-        pipe.executor.use_kernel = False
-        return pipe
-
-    jobs = [(s, True) for s in studies] + [(studies[-1], False)]
-    # warm-up outside the counted window: CUDA context, kernel loads
-    drive(DeidPipeline(device="cuda"), studies[-1])
     tracers = [Tracer(_WallClock()) for _ in jobs]
     reset_launches()
-    kernel_runs = [drive(DeidPipeline(device="cuda", recompress=rc, tracer=tr), s)
-                   for (s, rc), tr in zip(jobs, tracers)]
+    kernel_runs = [drive(make_pipeline("kernel", rc, mode, tr), s, pseudo)
+                   for (s, rc, mode), tr in zip(jobs, tracers)]
+    extra = during(kernel_runs) if during is not None else None
     launches = dict(LAUNCHES)
-    log(f"main path launches: {json.dumps(launches)}")
-    host_runs = [drive(host_pipeline(rc), s) for s, rc in jobs]
+    log(f"{name} path launches: {json.dumps(launches)}")
+    for k in kernels:
+        assert launches[k] > 0, f"kernel {k} never launched on the {name} path"
+    host_runs = [drive(make_pipeline("host", rc, mode), s, pseudo) for s, rc, mode in jobs]
+    for job, k_run, h_run, tr in zip(jobs, kernel_runs, host_runs, tracers):
+        check_equal(job, k_run, h_run, tr)
+    return launches, extra
 
-    for (s, rc), (k_res, k_outs, _), (h_res, h_outs, _), tr in zip(
-            jobs, kernel_runs, host_runs, tracers):
-        label = f"{s.modality} x{len(s.datasets)} {s.datasets[0].pixels.shape} recompress={rc}"
-        assert k_res.manifest.to_json() == h_res.manifest.to_json(), label
-        assert len(k_outs) == len(h_outs) == len(s.datasets), label
-        for a, b in zip(k_outs, h_outs):
-            assert a.payload == b.payload, label
-            assert np.array_equal(a.pixels, b.pixels), label
-        if rc:
-            # the decoder is a slow host oracle (a sequential parse once a
-            # stream holds Rice escapes, minutes for a 512x512 plane): the
-            # first instance of each study, which carries the blanked text
-            assert np.array_equal(codec.decode(k_outs[0].payload), k_outs[0].pixels), label
-        for a, b in zip(k_res.delivered, h_res.delivered):
-            assert a.elements == b.elements and np.array_equal(a.pixels, b.pixels), label
-        if rc:
-            assert all(e.compressed_bytes > 0 for e in k_res.manifest.entries), label
-        spans = {name: sum(sp.duration for sp in tr.spans(name))
-                 for name in ("pipeline.run_study", "kernel.dispatch", "kernel.entropy_code")}
-        log(f"pipeline {label}: payloads, pixels and manifest equal; kernel path spans (s) "
-            f"{json.dumps(spans)}")
-    del kernel_runs, host_runs
 
-    # throughput, tracing off: ROUNDS runs of each path per study, the order
-    # of the two paths alternating from round to round
+def throughput(jobs, pseudo) -> None:
+    """MB/s of both paths, tracing off: ROUNDS runs each per job, the order
+    of the two paths alternating from round to round."""
     secs = {(j, path): [] for j in range(len(jobs)) for path in ("kernel", "host")}
     for r in range(ROUNDS):
-        for j, (s, rc) in enumerate(jobs):
-            order = ("kernel", "host") if r % 2 == 0 else ("host", "kernel")
-            for path in order:
-                pipe = DeidPipeline(device="cuda", recompress=rc) if path == "kernel" \
-                    else host_pipeline(rc)
-                secs[(j, path)].append(drive(pipe, s)[2])
-    for j, (s, rc) in enumerate(jobs):
-        mb = sum(d.pixels.nbytes for d in s.datasets) / 1e6
+        for j, (s, rc, mode) in enumerate(jobs):
+            for path in (("kernel", "host") if r % 2 == 0 else ("host", "kernel")):
+                secs[(j, path)].append(drive(make_pipeline(path, rc, mode), s, pseudo)[-1])
+    for j, job in enumerate(jobs):
+        mb = sum(d.pixels.nbytes for d in job[0].datasets) / 1e6
         rates = {path: sorted(mb / t for t in secs[(j, path)]) for path in ("kernel", "host")}
-        log(f"throughput {s.modality} x{len(s.datasets)} {s.datasets[0].pixels.shape} "
-            f"recompress={rc}: {mb:.1f} MB; MB/s median kernel path "
+        log(f"throughput {job_label(job)}: {mb:.1f} MB; MB/s median kernel path "
             f"{statistics.median(rates['kernel'])} host path {statistics.median(rates['host'])}; "
             f"all runs {json.dumps(rates)}")
-    for name in KERNELS:
-        assert launches[name] > 0, f"kernel {name} never launched on the main path"
+
+
+def audit(studies_and_runs, device) -> dict:
+    """``audit_dataset`` flags of every raw and every delivered instance."""
+    from repro_torch.kernels.phi_detect.ops import audit_dataset
+
+    return {
+        label: ([audit_dataset(d, device=device) for d in s.datasets],
+                [audit_dataset(d, device=device) for d in run[0].delivered])
+        for label, s, run in studies_and_runs
+    }
+
+
+def run_detector_path(jobs, n_audited, pseudo) -> dict:
+    """The detector path; its first ``n_audited`` jobs are audited."""
+    from repro_torch.kernels.phi_detect.ops import audit_dataset
+
+    # warm-up outside the counted window: kernel loads
+    drive(make_pipeline("kernel", True, "registry_first"), jobs[1][0], pseudo)
+    audit_dataset(jobs[1][0].datasets[0], device="cuda")
+    audited = {}
+
+    def audit_on_card(kernel_runs):
+        audited["runs"] = [(job_label(job), job[0], run)
+                           for job, run in zip(jobs[:n_audited], kernel_runs)]
+        return audit(audited["runs"], "cuda")
+
+    # detection runs before the scrub, whose recompressing chunks go through
+    # the cold path's kernels as well
+    launches, card_flags = run_path("detector", jobs, pseudo,
+                                    DETECTOR_KERNELS + ("fused", "rice_prepass", "rice_len_rem"),
+                                    during=audit_on_card)
+    cpu_flags = audit(audited["runs"], "cpu")
+    for label, (raw, delivered) in card_flags.items():
+        assert (raw, delivered) == cpu_flags[label], f"audit on the card != CPU: {label}"
+        assert not any(delivered), f"a delivered instance failed the audit: {label}"
+        assert any(raw), f"no raw instance flagged (negative control): {label}"
+        log(f"audit {label}: raw flagged {sum(raw)}/{len(raw)}, delivered flagged "
+            f"{sum(delivered)}/{len(delivered)}; equal to the CPU")
     return launches
 
 
@@ -383,15 +611,35 @@ def main() -> None:
     dx = gen.gen_study("SMOKE-DX", device=DeviceKey("DX", "GE", "Definium", 2500, 2048),
                        n_images=4)
     us = gen.gen_study("SMOKE-US", modality="US", n_images=32)
-    log(f"studies: CT {len(ct.datasets)}x{ct.datasets[0].pixels.shape}, "
-        f"DX {len(dx.datasets)}x{dx.datasets[0].pixels.shape}, "
-        f"US {len(us.datasets)}x{us.datasets[0].pixels.shape} {us.device.id()}")
+    # unknown devices: no scrub rule, so registry_first scans every instance
+    uct = gen.gen_study("SMOKE-UCT", device=gen.unknown_device("smoke", "CT"), n_images=CT_SLICES)
+    udx = gen.gen_study("SMOKE-UDX", device=gen.unknown_device("smoke", "DX"), n_images=4)
+    for s in (ct, dx, us, uct, udx):
+        log(f"study {s.accession}: {len(s.datasets)}x{s.datasets[0].pixels.shape} "
+            f"{s.datasets[0].pixels.dtype} {s.device.id()}, {len(s.phi_rects)} with burned-in text")
 
     rows = check_kernels(us.datasets[0].pixels.shape)
+    rows.update(check_detector_kernels(us.datasets[0].pixels.shape))
     pseudo = PseudonymService("IRB-SMOKE", TrustMode.POST_IRB, key=b"s" * 32)
-    launches = run_pipeline([ct, dx, us], pseudo)
+
+    # the cold de-identification path (no detector); warm-up outside the
+    # counted window: CUDA context, kernel loads
+    main_jobs = [(ct, True, None), (dx, True, None), (us, True, None), (us, False, None)]
+    drive(make_pipeline("kernel"), us, pseudo)
+    launches, _ = run_path("main", main_jobs, pseudo, MAIN_KERNELS)
+    throughput(main_jobs, pseudo)
     split = chunk_split(ct)
     log(f"CT chunk (32,512,512) split: {json.dumps(split)}")
+
+    # the detector path: registry_first on the unknown devices (audited),
+    # union on the known ones
+    det_jobs = [(uct, True, "registry_first"), (udx, True, "registry_first"),
+                (ct, True, "union"), (dx, True, "union"), (us, True, "union")]
+    launches.update({k: v for k, v in run_detector_path(det_jobs, 2, pseudo).items()
+                     if k in DETECTOR_KERNELS})
+    throughput([det_jobs[0], det_jobs[2]], pseudo)
+    log(f"unknown-CT chunk (32,320,512) detection beside fused upload: "
+        f"{json.dumps(detect_split(uct))}")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

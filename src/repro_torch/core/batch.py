@@ -26,11 +26,18 @@ way the card wants:
   numpy arrays (never CUDA tensors) and are drained in submission order, so
   payload bytes are identical for any pool size, including the inline
   ``host_workers=0`` mode.
+* **detect** — :meth:`BatchedDeidExecutor.detect_row_hits` runs the
+  burned-in-PHI detector's profile pass over (H, W, dtype, threshold)
+  buckets under the same padding rule: one textdetect kernel per chunk and
+  a row sum on the card, (n, H) int32 row hits back to the host. It is
+  synchronous, ahead of ``run``, and uploads the planes it scans once more
+  than ``run`` does.
 
 The executor owns dispatch statistics and a lazily created pack pool.
 """
 from __future__ import annotations
 
+import math
 import os
 from collections import defaultdict, deque
 from concurrent.futures import ThreadPoolExecutor
@@ -46,6 +53,8 @@ from repro_torch.dicom.devices import Rect
 from repro_torch.kernels.fused.ops import fused_scrub_residuals
 from repro_torch.kernels.jls import entropy
 from repro_torch.kernels.scrub.ops import pack_rects, scrub_images
+from repro_torch.kernels.textdetect.ops import row_hits
+from repro_torch.kernels.textdetect.ref import row_hits_np
 from repro_torch.obs.metrics import Gauge, StatsShim
 from repro_torch.obs.trace import NULL_TRACER
 
@@ -374,6 +383,18 @@ class BatchedDeidExecutor:
         t = torch.from_numpy(array)
         return t.pin_memory() if self.device.type == "cuda" else t
 
+    def _stage_planes(self, planes, n_pad: int, H: int, W: int, dtype_name: str) -> torch.Tensor:
+        """(n_pad, H, W) host tensor holding ``planes`` then zero planes,
+        each plane written once, straight into pinned memory when the copy
+        goes to a card."""
+        t = torch.empty((n_pad, H, W), dtype=getattr(torch, dtype_name),
+                        pin_memory=self.device.type == "cuda")
+        view = t.numpy()
+        for j, plane in enumerate(planes):
+            view[j] = plane
+        view[len(planes):] = 0
+        return t
+
     def _submit_kernel(self, items, st, sv, recompress) -> None:
         """Stage one padded chunk, copy it to the device and queue the fused
         (or scrub-only) kernels; device values stay asynchronous until
@@ -381,14 +402,12 @@ class BatchedDeidExecutor:
         chunk, H, W = st.idxs, st.H, st.W
         n = len(chunk)
         n_pad = _pow2_at_least(n, self.max_batch)
-        stack = np.zeros((n_pad, H, W), np.dtype(st.dtype_name))
-        for j, i in enumerate(chunk):
-            stack[j] = items[i][0]
         rects = np.zeros((n_pad, st.rb, 4), np.int32)
         rects[:n] = pack_rects([list(items[i][1]) for i in chunk], R=st.rb)
         self.stats.padded_shapes.add((n_pad, H, W, st.dtype_name, st.rb))
 
-        st.staged = (self._stage(stack), self._stage(rects))
+        st.staged = (self._stage_planes([items[i][0] for i in chunk], n_pad, H, W, st.dtype_name),
+                     self._stage(rects))
         images_d, rects_d = (t.to(self.device, non_blocking=True) for t in st.staged)
         if self.device.type == "cuda":
             st.copied = torch.cuda.Event()
@@ -524,7 +543,71 @@ class BatchedDeidExecutor:
                 )
 
     # ------------------------------------------------------------- detection
-    def detect_row_hits(self, entries, *, tile: Tuple[int, int] = (32, 128)):
-        """Batched text-band profile pass of the burned-in-PHI detector."""
-        raise NotImplementedError("detector not ported yet")
+    def detect_row_hits(
+        self,
+        entries: Sequence[Tuple[np.ndarray, float]],
+        *,
+        tile: Tuple[int, int] = (32, 128),
+    ) -> List[np.ndarray]:
+        """Batched text-band profile pass for the burned-in-PHI detector.
+
+        entries: per instance (2D pixels, binarization threshold). Instances
+        are bucketed by (H, W, dtype, threshold) — the detector rides the
+        same shape-uniform dispatch discipline as the scrub kernel — and each
+        chunk is one ``kernels/textdetect`` call on the device path (the CUDA
+        kernel on the card, its plain version on the CPU) or the
+        bit-identical numpy oracle on the host path. The pass is synchronous:
+        the scrub stage needs the row hits on the host to resolve rects.
+        Returns per-instance (H,) int32 row glyph-hit profiles aligned with
+        ``entries``.
+        """
+        use_kernel = self._resolve_use_kernel()
+        out: List[Optional[np.ndarray]] = [None] * len(entries)
+        buckets: Dict[tuple, List[int]] = defaultdict(list)
+        for i, (pixels, thresh) in enumerate(entries):
+            t = float(thresh)
+            # a NaN key never equals itself: every instance would land in its
+            # own bucket and get a private dispatch — reject it at the door
+            if not math.isfinite(t):
+                raise ValueError(
+                    f"detector threshold must be finite, got {t!r} (entry {i})"
+                )
+            buckets[(pixels.shape[0], pixels.shape[1], pixels.dtype.name, t)].append(i)
+        for (H, W, dtype_name, thresh), idxs in buckets.items():
+            for c0 in range(0, len(idxs), self.max_batch):
+                chunk = idxs[c0 : c0 + self.max_batch]
+                self.stats.detect_dispatches += 1
+                self.stats.detect_instances += len(chunk)
+                with self.tracer.span(
+                    "kernel.detect_dispatch",
+                    path="textdetect" if use_kernel else "oracle",
+                    batch=len(chunk),
+                    shape=f"{H}x{W}",
+                    dtype=dtype_name,
+                    bytes_in=sum(entries[i][0].nbytes for i in chunk),
+                ):
+                    if use_kernel:
+                        hits = self._detect_kernel(entries, chunk, H, W, dtype_name, thresh, tile)
+                    else:
+                        stack = np.stack([entries[i][0] for i in chunk])
+                        hits = row_hits_np(stack, thresh, tile)
+                    for j, i in enumerate(chunk):
+                        out[i] = hits[j]
+        return out  # every index was bucketed exactly once
+
+    def _detect_kernel(self, entries, chunk, H, W, dtype_name, thresh, tile) -> np.ndarray:
+        """One padded detector chunk through the textdetect op: staged in
+        pinned memory, copied to the device, profiled, reduced to row hits
+        there, and the (n, H) int32 result of the real instances copied
+        back."""
+        n = len(chunk)
+        # pad the batch dim like the fused path: the set of padded shapes
+        # stays small and closed
+        n_pad = _pow2_at_least(n, self.max_batch)
+        self.stats.padded_shapes.add((n_pad, H, W, dtype_name, "detect"))
+        staged = self._stage_planes([entries[i][0] for i in chunk], n_pad, H, W, dtype_name)
+        images_d = staged.to(self.device, non_blocking=True)
+        # the copy back waits for the kernel, and the kernel for the upload,
+        # so the staging buffer outlives its copy
+        return row_hits(images_d, thresh=thresh, tile=tile)[:n].cpu().numpy()
 

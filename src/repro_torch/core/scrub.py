@@ -8,9 +8,12 @@ JPEG-Lossless-style codec. The blanking compute itself is pluggable:
 * ``repro_torch.kernels.scrub.ops.make_blank_fn`` — the CUDA scrub kernel
   behind the same single-instance protocol.
 
-The burned-in-PHI detector is not ported yet: a stage built with an enabled
-``DetectorPolicy`` raises ``NotImplementedError``. A disabled policy (mode
-"off") behaves as no policy, as in the JAX package.
+Under an enabled ``DetectorPolicy`` the burned-in-PHI detector proposes
+rects for the instances the policy scans (registry misses under
+``registry_first``, every instance under ``union``); they are merged with
+the registry rects. ``scrub_study`` runs the detector's profile pass as one
+batched executor dispatch per shape bucket (the textdetect kernel on the
+card); the serial path runs the numpy oracle per instance, bit-identically.
 
 Defense in depth: an ultrasound instance with no scrub rule should have been
 filtered upstream; the stage re-checks and fails closed rather than passing
@@ -19,17 +22,20 @@ un-scrubbed US pixels through.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.audit.ledger import NULL_LEDGER
+from repro_torch.audit.records import DETECTOR_DECISION
 from repro_torch.core.rules import parse_scrub_script, script_sha
 from repro_torch.detect.policy import DetectorPolicy
+from repro_torch.detect.regions import detect_bands_for, merge_rects, policy_thresh
 from repro_torch.detect.report import DetectionReport, DetectStats
 from repro_torch.dicom import codec
 from repro_torch.dicom.dataset import DicomDataset
 from repro_torch.dicom.devices import DeviceKey, Rect, registry
+from repro_torch.kernels.phi_detect.ops import stored_max_value
 
 
 def numpy_blank(pixels: np.ndarray, rects: Sequence[Rect]) -> np.ndarray:
@@ -77,9 +83,7 @@ class ScrubStage:
         self.recompress = recompress
         self.sv = sv
         # burned-in pixel-PHI detector policy; None and mode="off" are both
-        # the registry-only behavior, the only one ported so far
-        if policy is not None and policy.enabled:
-            raise NotImplementedError("detector not ported yet")
+        # the legacy registry-only behavior
         self.policy = policy
         self.ledger = ledger if ledger is not None else NULL_LEDGER
         # registry: optional shared MetricsRegistry so fleet-level snapshots
@@ -110,17 +114,43 @@ class ScrubStage:
             int(res[1]),
         )
 
+    def _detect_thresh(self, ds: DicomDataset) -> float:
+        """Binarization threshold for this instance (shared derivation —
+        the batched pre-pass buckets executor dispatches by it)."""
+        return policy_thresh(ds, self.policy)
+
+    def _wants_detection(self, ds: DicomDataset, registry_hit: bool) -> bool:
+        """Batched pre-pass predicate: will :meth:`_resolve_rects` scan this
+        instance's pixels? (US misses fail closed before detection; only
+        single-plane 2D frames are scannable.)"""
+        if self.policy is None or not self.policy.enabled:
+            return False
+        if ds.pixels is None or ds.pixels.ndim != 2:
+            return False
+        if not registry_hit and ds.get("Modality") == "US":
+            return False
+        return self.policy.wants_detection(registry_hit)
+
     def _resolve_rects(
-        self, ds: DicomDataset
+        self, ds: DicomDataset, row_hits: Optional[np.ndarray] = None
     ) -> Tuple[Tuple[Rect, ...], Optional[DetectionReport]]:
-        """Rects to blank for this instance (the detection report slot stays
-        None until the detector is ported); raises :class:`ScrubError` on the
-        fail-closed cases shared by the serial and batched paths.
+        """Rects to blank for this instance (+ the detection audit report when
+        a policy is active); raises :class:`ScrubError` on the fail-closed
+        cases shared by the serial and batched paths.
+
+        ``row_hits`` is the precomputed per-row glyph-hit profile from a
+        batched executor dispatch — bit-identical to the host oracle computed
+        here when absent, so serial and batched paths stay byte-identical.
         """
         if ds.pixels is None:
             raise ScrubError("no pixel data to scrub (object should have been filtered)")
         rects = self.rects_for(ds)
         registry_hit = rects is not None
+        policy = self.policy
+        if policy is not None and policy.enabled:
+            self.detect_stats.instances += 1
+            if registry_hit:
+                self.detect_stats.registry_hits += 1
         if not registry_hit:
             # an unknown (manufacturer, model) is counted and surfaced as a
             # worker/fleet metric in every mode — detector on, off, or absent
@@ -135,7 +165,48 @@ class ScrubStage:
                 f"{ds.get('Manufacturer')}/{ds.get('ManufacturerModelName')}/"
                 f"{ds.resolution()} — filter should have rejected it"
             )
-        return tuple(rects or ()), None
+        if policy is None or not policy.enabled:
+            return tuple(rects or ()), None
+
+        report = DetectionReport(
+            sop_uid=str(ds.get("SOPInstanceUID", "")),
+            modality=str(ds.get("Modality", "")),
+            device=self._device_key(ds).id(),
+            registry_hit=registry_hit,
+            registry_rects=list(rects or ()),
+            tau=policy.tau_for(str(ds.get("Modality", ""))),
+        )
+        combined: List[Rect] = list(rects or ())
+        if self._wants_detection(ds, registry_hit):
+            report.ceiling = stored_max_value(ds)
+            report.thresh = report.ceiling * policy.binarize_frac
+            report.detector_ran = True
+            self.detect_stats.detector_runs += 1
+            bands, drects = detect_bands_for(
+                ds, policy, row_hits=row_hits, thresh=report.thresh
+            )
+            report.bands = bands
+            report.detector_rects = drects
+            if bands:
+                self.detect_stats.detected += 1
+                self.detect_stats.bands += len(bands)
+            combined.extend(drects)
+            # each detector run is a PHI decision: which pixels get blanked,
+            # under which versioned policy — auditable per instance
+            self.ledger.append(
+                DETECTOR_DECISION,
+                modality=report.modality,
+                device=report.device,
+                registry_hit=registry_hit,
+                detected=bool(bands),
+                bands=len(bands),
+                detector_sha=policy.digest,
+            )
+        # registry + detector unions routinely overlap: normalize so the
+        # fused kernel never double-blanks a tile (blanked set unchanged)
+        applied = merge_rects(combined)
+        report.applied_rects = list(applied)
+        return tuple(applied), report
 
     def __call__(self, ds: DicomDataset) -> ScrubResult:
         rects, detection = self._resolve_rects(ds)
@@ -179,11 +250,26 @@ class ScrubStage:
         rect_semantics = getattr(
             self.blank_fn, "rect_blank_semantics", self.blank_fn is numpy_blank
         )
+        # detection pre-pass: instances the policy will scan ride the
+        # shape-bucketed executor in batched kernel dispatches; their per-row
+        # hit profiles are handed to _resolve_rects (bit-identical to the
+        # host oracle it would otherwise run per instance)
+        hits_for: Dict[int, np.ndarray] = {}
+        if executor is not None and self.policy is not None and self.policy.enabled:
+            scan_idx: List[int] = []
+            scan_items: List[Tuple[np.ndarray, float]] = []
+            for i, ds in enumerate(datasets):
+                if self._wants_detection(ds, self.rects_for(ds) is not None):
+                    scan_idx.append(i)
+                    scan_items.append((ds.pixels, self._detect_thresh(ds)))
+            if scan_items:
+                profiles = executor.detect_row_hits(scan_items, tile=self.policy.tile)
+                hits_for = dict(zip(scan_idx, profiles))
         batch_idx: List[int] = []
         items: List[Tuple[np.ndarray, List[Rect]]] = []
         for i, ds in enumerate(datasets):
             try:
-                rects, detection = self._resolve_rects(ds)
+                rects, detection = self._resolve_rects(ds, row_hits=hits_for.get(i))
             except ScrubError as e:
                 slots[i] = (None, e)
                 continue

@@ -4,6 +4,10 @@
   fused   - single-pass scrub + JPEG-Lossless residuals (``csrc/fused.cu``)
   jls     - Golomb-Rice plan pre-pass: zigzag + row sums, code lengths +
             remainders (``csrc/entropy.cu``)
+  textdetect - per-tile glyph-hit profiles and max runs of the burned-in-PHI
+            detector (``csrc/textdetect.cu``)
+  phi_detect - per-tile strong-edge density of the post-scrub audit
+            (``csrc/phi_detect.cu``)
 
 A public op takes torch tensors: on a CUDA tensor it launches its kernel
 (or raises), on a CPU tensor it runs the plain PyTorch version. Each launch
@@ -12,7 +16,9 @@ the main path went through.
 """
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"fused": 0, "rice_prepass": 0, "rice_len_rem": 0, "scrub": 0}
+LAUNCHES: Dict[str, int] = {
+    "fused": 0, "rice_prepass": 0, "rice_len_rem": 0, "scrub": 0, "textdetect": 0, "phi_detect": 0,
+}
 
 
 def reset_launches() -> None:

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("scrub", "fused", "entropy")
+SOURCES = ("scrub", "fused", "entropy", "textdetect", "phi_detect")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -92,11 +92,14 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def bind(name: str, symbol: str, n_ptrs: int, n_ints: int):
+def bind(name: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int = 0):
     """C entry point ``symbol`` of library ``name`` with its argument types
-    set: ``n_ptrs`` pointers, ``n_ints`` ints, then the stream pointer."""
+    set: ``n_ptrs`` pointers, ``n_ints`` ints, ``n_floats`` floats (32-bit:
+    a threshold compared in float32 must reach the kernel as one), then the
+    stream pointer."""
     fn = getattr(library(name), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn

@@ -60,9 +60,20 @@ class TestDeviceRule:
         assert ex.use_kernel is False
         assert {sp.attrs["path"] for sp in tracer.spans("kernel.dispatch")} == {"host"}
 
-    def test_detector_not_ported(self, rng):
-        with pytest.raises(NotImplementedError):
-            _ex().detect_row_hits([(np.zeros((32, 128), np.uint8), 10.0)])
+    @pytest.mark.parametrize("use_kernel", [None, True])
+    def test_detect_row_hits_equals_jax(self, rng, use_kernel):
+        """detect_row_hits equals the JAX executor's (row hits, padded
+        shapes, dispatch counts) and the numpy oracle, on either path."""
+        entries = [((rng.random((40, 150)) * 4095).astype(np.uint16), 2457.0) for _ in range(3)]
+        entries.append((np.full((32, 128), 200, np.uint8), 153.0))
+        ex = _ex(max_batch=2, use_kernel=use_kernel)
+        ref = JaxExecutor(max_batch=2, use_kernel=bool(use_kernel))
+        got, want = ex.detect_row_hits(entries), ref.detect_row_hits(entries)
+        for g, w, (px, t) in zip(got, want, entries):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, (px.astype(np.float32) >= np.float32(t)).sum(1))
+        assert ex.stats.padded_shapes == ref.stats.padded_shapes
+        assert (ex.stats.detect_dispatches, ex.stats.detect_instances) == (3, 4)
 
 
 class TestBucketing:

@@ -13,13 +13,18 @@ import torch
 
 from repro_torch.core import DeidPipeline, PseudonymService, TrustMode, build_request
 from repro_torch.core.batch import BatchedDeidExecutor
+from repro_torch.detect import DetectorPolicy
 from repro_torch.dicom.generator import StudyGenerator
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.fused.ops import fused_scrub_residuals
 from repro_torch.kernels.fused.ref import fused_ref
 from repro_torch.kernels.jls import entropy
+from repro_torch.kernels.phi_detect import ops as phi_ops
+from repro_torch.kernels.phi_detect.ref import edge_density_ref
 from repro_torch.kernels.scrub.ops import pack_rects, scrub_images
 from repro_torch.kernels.scrub.ref import scrub_ref
+from repro_torch.kernels.textdetect.ops import tile_profiles
+from repro_torch.kernels.textdetect.ref import tile_profiles_torch
 
 pytestmark = pytest.mark.gpu
 
@@ -98,3 +103,53 @@ def test_pipeline_on_card_equals_host_path(cuda, modality):
     assert got[1].to_json() == want[1].to_json()
     for a, b in zip(got[0], want[0]):
         assert a.elements == b.elements and np.array_equal(a.pixels, b.pixels)
+
+
+@pytest.mark.parametrize("tile", [(32, 128), (16, 64), (24, 100)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+@pytest.mark.parametrize("thresh", [2457.0001, 0.0])
+def test_detector_kernels_equal_plain_versions(rng, cuda, tile, dtype, thresh):
+    """Ragged H and W (the kernels read zeros past the frame), the float32
+    threshold straddle, and hits in the padding at thresh <= 0."""
+    if dtype == np.float32:
+        imgs = rng.random((3, 70, 300)).astype(np.float32) * 4000
+    else:
+        imgs = _full_range(rng, (3, 70, 300), dtype)
+    imgs[:, :, -1] = 255 if dtype == np.uint8 else 2457
+    images = torch.from_numpy(imgs).to(cuda)
+    before = dict(LAUNCHES)
+    for got, want in zip(tile_profiles(images, thresh=thresh, tile=tile),
+                         tile_profiles_torch(images, thresh, tile)):
+        assert torch.equal(got, want)
+    got = phi_ops.edge_density(images, thresh=thresh + 1000.0, tile=tile)
+    assert torch.equal(got, edge_density_ref(images, thresh + 1000.0, tile))
+    torch.cuda.synchronize()
+    assert LAUNCHES["textdetect"] - before["textdetect"] == 1
+    assert LAUNCHES["phi_detect"] - before["phi_detect"] == 1
+
+
+def test_detector_kernels_refuse_oversized_tile(cuda):
+    images = torch.zeros((1, 64, 4096), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="tile"):
+        tile_profiles(images, thresh=1.0, tile=(32, 2048))
+    with pytest.raises(ValueError, match="tile"):
+        phi_ops.edge_density(images, thresh=1.0, tile=(32, 2048))
+
+
+def test_registry_first_pipeline_on_card_equals_host_path(cuda):
+    gen = StudyGenerator(seed=5)
+    study = gen.gen_study("GPU-UCT", device=gen.unknown_device("GPU-UCT", "CT"), n_images=18)
+    pseudo = PseudonymService("IRB-G", TrustMode.POST_IRB, key=b"g" * 32)
+    req = build_request(pseudo, study.accession, study.mrn)
+    before = LAUNCHES["textdetect"]
+    card = DeidPipeline(detector_policy=DetectorPolicy())
+    host = DeidPipeline(detector_policy=DetectorPolicy(), device=cuda)
+    host.executor.use_kernel = False
+    got, want = card.process_study(study, req), host.process_study(study, req)
+    assert LAUNCHES["textdetect"] > before
+    assert card.scrub.detect_stats.detector_runs == 18
+    assert card.scrub.detect_stats.detected == host.scrub.detect_stats.detected > 0
+    assert got[1].to_json() == want[1].to_json()
+    for a, b in zip(got[0], want[0]):
+        assert a.elements == b.elements and np.array_equal(a.pixels, b.pixels)
+        assert phi_ops.audit_dataset(a) is phi_ops.audit_dataset(a, device="cpu") is False

@@ -33,7 +33,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"},
     )
     n_modules, bad = out.stdout.split("\n")[:2]
-    assert int(n_modules) >= 30
+    assert int(n_modules) >= 48
     assert bad == ""
 
 
@@ -49,7 +49,7 @@ def test_no_source_imports_jax_or_repro(path):
 
 
 def test_every_kernel_source_names_the_tpu_kernel_it_replaces():
-    for cu in ("scrub.cu", "fused.cu", "entropy.cu"):
+    for cu in ("scrub.cu", "fused.cu", "entropy.cu", "textdetect.cu", "phi_detect.cu"):
         text = (PORT / "csrc" / cu).read_text()
         assert "Replaces" in text and "src/repro/kernels/" in text and "Bound" in text
 
@@ -73,5 +73,8 @@ def test_package_lists_its_modules():
     names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
     for needed in ("repro_torch.core.batch", "repro_torch.core.pipeline",
                    "repro_torch.kernels.fused.ops", "repro_torch.kernels.jls.entropy",
-                   "repro_torch.kernels.scrub.ops", "repro_torch.carry", "repro_torch.device"):
+                   "repro_torch.kernels.scrub.ops", "repro_torch.carry", "repro_torch.device",
+                   "repro_torch.kernels.textdetect.ops", "repro_torch.kernels.textdetect.ref",
+                   "repro_torch.kernels.phi_detect.ops", "repro_torch.kernels.phi_detect.ref",
+                   "repro_torch.detect.regions"):
         assert needed in names

@@ -113,13 +113,21 @@ class TestPipelineContracts:
             with pytest.raises(RuntimeError, match="CUDA"):
                 DeidPipeline()
 
-    def test_lake_and_detector_not_ported(self):
+    def test_lake_refused_detector_scans(self, gen):
+        """The result lake is still refused; an enabled detector policy
+        builds and scans an unknown device's instances."""
         with pytest.raises(NotImplementedError):
             DeidPipeline(lake=object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="detector"):
-            DeidPipeline(detector_policy=DetectorPolicy(), device="cpu")
+        s = gen.gen_study("PIPE-UNK", device=gen.unknown_device("PIPE-UNK", "CT"), n_images=2)
+        port_study, port_req, _ = _both(s)
+        pipe = DeidPipeline(detector_policy=DetectorPolicy(), recompress=False, device="cpu")
+        pipe.process_study(port_study, port_req)
+        assert pipe.scrub.detect_stats.detector_runs == 2
+        assert pipe.executor.stats.detect_instances == 2
         # a disabled policy is the registry-only behaviour, as in the JAX package
-        DeidPipeline(detector_policy=DetectorPolicy(mode="off"), device="cpu")
+        off = DeidPipeline(detector_policy=DetectorPolicy(mode="off"), device="cpu")
+        off.process_study(port_study, port_req)
+        assert off.scrub.detect_stats.detector_runs == 0
 
     def test_us_fail_closed_and_unknown_device_counted(self, gen):
         from repro.core import DeidPipeline as JP
