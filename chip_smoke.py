@@ -10,6 +10,8 @@ Phases, in order; any failure raises and exits non-zero:
             (one nvcc per source, started together).
 2. kernels — hold each kernel against its plain PyTorch version on the card
             with ``torch.equal`` at the main path's shapes (CT, DX, US chunks,
+            the bitmap combine of a 2^22-row scan and its ragged, K=1+1,
+            K=8+1 and not-rooted variants, an over-long program refused,
             every selection value at one small shape; for the two detector
             kernels the unknown-device CT and DX chunks, a float32 stack, a
             (16, 64) tile and the float32 threshold straddle 2457.0001), and
@@ -35,6 +37,25 @@ Phases, in order; any failure raises and exits non-zero:
             untraced runs each, in alternating order), the H2D / kernels /
             D2H / host-splice split of one CT chunk, and the detection
             upload beside the fused upload of one unknown-CT chunk.
+            Then two serving paths, each in its own counted window:
+            (d) a metadata catalog of 2^22 rows on the card
+            (``StudyCatalog(device="cuda")``, 8192 accessions x 512
+            instances): date ranges at ~1/10/50 % selectivity, which zone
+            maps prune, and a full scan (In, Not, Contains); every card
+            select must equal ``select(mode="oracle")``; prints both modes'
+            select times (median of ROUNDS, alternating), rows scanned, and
+            the host concat / H2D / compares + pack / kernel / D2H + unpack
+            split of the full scan;
+            (e) query-then-de-identify: ``DeidService.submit_query`` over a
+            CT/DX/US/unknown-CT corpus, the broker, an autoscaled worker
+            pool, a result lake, a journal and a hash-chained audit ledger;
+            the kernel stack must equal a host stack (host codec and
+            detector, catalog on the CPU) in selection, ticket, delivered
+            outputs, manifests and ledger kind counts, both ledgers verify,
+            and a replay of the query publishes nothing, launches bitmap
+            once and fused never. Prints query -> drained seconds and MB/s
+            of cold bytes for both stacks (fresh deployments, median of
+            ROUNDS, alternating).
 4. result — one JSON line listing every kernel, then the device line.
 
 Needs CUDA and the repository's ``src/`` beside this file; imports nothing of
@@ -47,7 +68,9 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -65,6 +88,13 @@ ROUNDS = 3  # timed pipeline runs of each path per study
 CT_SLICES = 256
 MAIN_KERNELS = ("fused", "rice_prepass", "rice_len_rem", "scrub")
 DETECTOR_KERNELS = ("textdetect", "phi_detect")
+SERVE_KERNELS = ("bitmap", "fused", "rice_prepass", "rice_len_rem", "textdetect")
+# path (d): a mid-size hospital archive's instance count, metadata only
+CATALOG_ACCESSIONS = 8192
+CATALOG_INSTANCES = 512          # per accession: 2^22 rows
+CATALOG_BLOCK_ROWS = 512
+SELECTIVITIES = (0.01, 0.10, 0.50)
+STUDY_ID = "IRB-SERVE"
 
 KERNELS = {
     "fused": ("src/repro_torch/csrc/fused.cu", "src/repro/kernels/fused/fused.py:117"),
@@ -75,6 +105,7 @@ KERNELS = {
                    "src/repro/kernels/textdetect/textdetect.py:67"),
     "phi_detect": ("src/repro_torch/csrc/phi_detect.cu",
                    "src/repro/kernels/phi_detect/phi_detect.py:45"),
+    "bitmap": ("src/repro_torch/csrc/bitmap.cu", "src/repro/kernels/bitmap/bitmap.py:53"),
 }
 
 
@@ -311,6 +342,80 @@ def check_detector_kernels(us_shape) -> dict:
         }
         log(f"time {name}: {json.dumps(rows[name])}")
     return rows
+
+
+def check_bitmap_kernel() -> dict:
+    """The bitmap combine against its plain version, exact (bitmap and
+    count), at the 2^22-row full scan of path (d) and its variants; timed
+    at the full scan (K = 4 leaves + validity)."""
+    from repro_torch.kernels.bitmap.ops import (
+        combine_bitmaps,
+        combine_bitmaps_launch,
+        combine_bitmaps_torch,
+        pack_mask,
+        program_limits,
+    )
+
+    rng = np.random.default_rng(13)
+    n_full = CATALOG_ACCESSIONS * CATALOG_INSTANCES
+
+    def leaves_of(n, k):
+        masks = [rng.random(n) < rng.random() for _ in range(k)] + [rng.random(n) < 0.95]
+        return torch.stack([pack_mask(torch.from_numpy(m).cuda()) for m in masks])
+
+    def chain(k):
+        """k leaves joined by and/or with a NOT on every other one, then the
+        validity AND, as ``compile_query`` emits them."""
+        prog = [("leaf", 0)]
+        for i in range(1, k):
+            prog += [("leaf", i)] + ([("not",)] if i % 2 else []) + [("and",) if i % 3 else ("or",)]
+        return tuple(prog) + (("leaf", k), ("and",))
+
+    def case(what, leaves, prog, want_count=None):
+        got, count = combine_bitmaps(leaves, prog)
+        want, plain_count = combine_bitmaps_torch(leaves, prog)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or not torch.equal(got, want) or count != int(plain_count):
+            raise AssertionError(f"bitmap kernel != plain version on {what}")
+        if want_count is not None and count != want_count:
+            raise AssertionError(f"bitmap count {count} != {want_count} on {what}")
+        log(f"  equal: {what}: {len(prog)} ops, count {count}")
+
+    full = leaves_of(n_full, 4)
+    case(f"W={full.shape[1]} (n=2^22), K=4+1", full, chain(4))
+    case("ragged n=2^22-5, K=4+1", leaves_of(n_full - 5, 4), chain(4))
+    case("n=2^22, K=1+1", leaves_of(n_full, 1), chain(1))
+    case("n=2^22, K=8+1", leaves_of(n_full, 8), chain(8))
+    n = n_full - 5
+    empty_and_valid = torch.stack([pack_mask(torch.zeros(n, dtype=torch.bool, device="cuda")),
+                                   pack_mask(torch.ones(n, dtype=torch.bool, device="cuda"))])
+    case("not-rooted, n=2^22-5 (tail bits stay out)", empty_and_valid,
+         (("leaf", 0), ("not",), ("leaf", 1), ("and",)), want_count=n)
+    max_ops, max_depth = program_limits()
+    try:
+        combine_bitmaps(full, (("leaf", 0),) + (("not",),) * max_ops)
+    except ValueError as e:
+        log(f"  refused: a program of {max_ops + 1} ops (limit {max_ops}, depth {max_depth}): {e}")
+    else:
+        raise AssertionError("bitmap kernel took a program one op over its limit")
+    log("bitmap kernel: equals its plain version on every case")
+
+    prog = chain(4)
+    K, W = full.shape
+    # each leaf word read once, one word written; a bitwise op per program
+    # op and a popcount per word (int32 ALU)
+    b_ms, b_by = bound((K + 1) * W * 4, (len(prog) + 1) * W)
+    row = {
+        "ms": time_ms(lambda: combine_bitmaps_launch(full, prog)),
+        "plain_ms": time_ms(lambda: combine_bitmaps_torch(full, prog)),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,  # no single PyTorch call: torch has no popcount
+        "max_abs_err": 0,
+        "shape": f"({K},{W}) int32 words (n=2^22, 4 leaves + validity), {len(prog)} ops",
+    }
+    log(f"time bitmap: {json.dumps(row)}")
+    return {"bitmap": row}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -585,6 +690,315 @@ def run_detector_path(jobs, n_audited, pseudo) -> dict:
     return launches
 
 
+# ------------------------------------------------- phase 3: serving paths
+_MODALITIES = ["CT", "MR", "DX", "US", "CR", "PT"]
+_MAKES = ["GE Medical", "Siemens", "Philips", "Canon"]
+_MODELS = ["Optima CT660", "MAGNETOM Aera", "Epiq 7", "DRX-1"]
+_PARTS = ["CHEST", "HEAD", "ABDOMEN", "KNEE"]
+
+
+def build_scan_catalog():
+    """Path (d)'s catalog: metadata rows as ``benchmarks/catalogbench.py``
+    builds them (StudyDate sorted, so sealed blocks carry tight zone maps),
+    drawn in bulk and ingested one accession at a time."""
+    from repro_torch.catalog import StudyCatalog
+
+    rng = np.random.default_rng(2718)
+    n = CATALOG_ACCESSIONS * CATALOG_INSTANCES
+    dates = np.sort(20150000 + rng.integers(1, 6, n) * 10000 + rng.integers(1, 13, n) * 100
+                    + rng.integers(1, 29, n))
+    cols = {
+        "modality": [_MODALITIES[i] for i in rng.integers(len(_MODALITIES), size=n).tolist()],
+        "body_part": [_PARTS[i] for i in rng.integers(len(_PARTS), size=n).tolist()],
+        "manufacturer": [_MAKES[i] for i in rng.integers(len(_MAKES), size=n).tolist()],
+        "model": [_MODELS[i] for i in rng.integers(len(_MODELS), size=n).tolist()],
+        "study_date": dates.tolist(),
+        "bits_stored": rng.choice([8, 12, 16], size=n).tolist(),
+        "rows": [512] * n,
+        "cols": [512] * n,
+        "nbytes": rng.integers(10_000, 600_000, size=n).tolist(),
+        "burned_in": (rng.random(n) < 0.1).astype(int).tolist(),
+        "burned_in_detected": (rng.random(n) < 0.08).astype(int).tolist(),
+    }
+    names = list(cols)
+    cat = StudyCatalog(block_rows=CATALOG_BLOCK_ROWS, device="cuda")
+    t0 = time.perf_counter()
+    for a in range(CATALOG_ACCESSIONS):
+        lo, hi = a * CATALOG_INSTANCES, (a + 1) * CATALOG_INSTANCES
+        rows = [dict(zip(names, vals)) for vals in zip(*(cols[c][lo:hi] for c in names))]
+        cat.ingest_rows(f"SC{a:05d}", rows, etag=str(a))
+    return cat, dates, time.perf_counter() - t0
+
+
+def select_split(cat, pred) -> dict:
+    """One unpruned select through the steps ``eval_vectorized`` takes:
+    host concat of the scanned columns, their upload, the leaf compares and
+    packing, the bitmap kernel, and the copy back with the unpack."""
+    from repro_torch.catalog.query import _leaf_mask_torch, compile_query, eval_oracle
+    from repro_torch.kernels.bitmap.ops import combine_bitmaps_launch, pack_mask, unpack_mask
+
+    compiled = compile_query(pred, cat.dicts)
+    blocks = cat._all_blocks()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    best = None
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arrays = {c: np.concatenate([b.cols[c] for b in blocks]) for c in compiled.cols}
+        valid = np.concatenate([b.valid for b in blocks])
+        concat = (time.perf_counter() - t0) * 1e3
+        ev[0].record()
+        tarrays = {c: torch.from_numpy(a).to("cuda") for c, a in arrays.items()}
+        tvalid = torch.from_numpy(valid).to("cuda")
+        ev[1].record()
+        leaves = torch.stack([pack_mask(_leaf_mask_torch(leaf, tarrays))
+                              for leaf in compiled.leaves] + [pack_mask(tvalid)])
+        ev[2].record()
+        bitmap, _ = combine_bitmaps_launch(leaves, compiled.program)
+        ev[3].record()
+        ev[3].synchronize()
+        t1 = time.perf_counter()
+        mask = unpack_mask(bitmap, valid.shape[0])
+        unpack = (time.perf_counter() - t1) * 1e3
+        split = {
+            "host_concat_ms": concat,
+            "columns_h2d_ms": ev[0].elapsed_time(ev[1]),
+            "compares_and_pack_ms": ev[1].elapsed_time(ev[2]),
+            "bitmap_kernel_ms": ev[2].elapsed_time(ev[3]),
+            "d2h_and_unpack_ms": unpack,
+        }
+        if best is None or sum(split.values()) < sum(best.values()):
+            best = split
+    if not np.array_equal(mask, eval_oracle(compiled, arrays, valid)):
+        raise AssertionError("split select != oracle scan")
+    best["rows"] = int(valid.shape[0])
+    best["columns_uploaded_mb"] = sum(a.nbytes for a in arrays.values()) / 1e6 + valid.nbytes / 1e6
+    return best
+
+
+def run_catalog_path() -> int:
+    """Path (d). Returns the bitmap launches of its counted window."""
+    from repro_torch.catalog import And, Contains, In, Not, Range
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    cat, dates, ingest_s = build_scan_catalog()
+    n = len(dates)
+    log(f"catalog (d): {n} rows, {CATALOG_ACCESSIONS} accessions, {len(cat._blocks)} blocks of "
+        f"{CATALOG_BLOCK_ROWS}, ingest {ingest_s:.1f} s")
+    queries = {f"date range {f:.0%}": Range("study_date", int(dates[0]), int(dates[int(f * n) - 1]))
+               for f in SELECTIVITIES}
+    full = And(In("modality", ["CT", "MR", "DX"]), Not(Contains("model", "epiq")))
+    queries["full scan In/Not/Contains"] = full
+    cat.select(full)  # warm-up outside the counted window: kernel load
+    reset_launches()
+    selections = {}
+    for name, q in queries.items():
+        before = cat.stats.rows_scanned
+        selections[name] = (cat.select(q), cat.stats.rows_scanned - before)
+    launches = LAUNCHES["bitmap"]
+    log(f"catalog path launches: {json.dumps(dict(LAUNCHES))}")
+    assert launches == len(queries), f"bitmap launched {launches} times for {len(queries)} selects"
+    for name, q in queries.items():
+        sel, scanned = selections[name]
+        want = cat.select(q, mode="oracle")
+        if sel != want:
+            raise AssertionError(f"catalog select on the card != oracle: {name}")
+        assert sel.total_instances > 0, name
+        log(f"select {name}: equal to the oracle; {sel.total_instances} rows matched "
+            f"({sel.total_instances / n:.4f}), {len(sel.accessions)} accessions, rows scanned "
+            f"{scanned}, blocks scanned {sel.blocks_scanned} pruned {sel.blocks_pruned}")
+    assert selections["full scan In/Not/Contains"][0].blocks_pruned == 0
+    secs = {(name, mode): [] for name in queries for mode in ("auto", "oracle")}
+    for r in range(ROUNDS):
+        for name, q in queries.items():
+            for mode in (("auto", "oracle") if r % 2 == 0 else ("oracle", "auto")):
+                t0 = time.perf_counter()
+                cat.select(q, mode=mode)
+                secs[(name, mode)].append(time.perf_counter() - t0)
+    for name in queries:
+        log(f"select time {name}: median s card {statistics.median(secs[(name, 'auto')])} "
+            f"oracle {statistics.median(secs[(name, 'oracle')])}; all "
+            f"{json.dumps({m: secs[(name, m)] for m in ('auto', 'oracle')})}")
+    log(f"full-scan select split: {json.dumps(select_split(cat, full))}")
+    return launches
+
+
+def serve_corpus(gen, us_device):
+    """Path (e)'s corpus at the registry's shapes."""
+    from repro_torch.dicom.devices import DeviceKey
+
+    studies = []
+    for i in range(4):
+        studies.append(gen.gen_study(f"SERVE-CT{i}", n_images=64,
+                                     device=DeviceKey("CT", "GE", "Discovery", 512, 512)))
+    for i in range(2):
+        studies.append(gen.gen_study(f"SERVE-DX{i}", n_images=2,
+                                     device=DeviceKey("DX", "GE", "Definium", 2500, 2048)))
+    for i in range(4):
+        studies.append(gen.gen_study(f"SERVE-US{i}", n_images=16, device=us_device))
+    for i in range(2):
+        studies.append(gen.gen_study(f"SERVE-UCT{i}", n_images=32,
+                                     device=gen.unknown_device(f"serve{i}", "CT")))
+    return studies
+
+
+def serve_query(studies):
+    """CT and DX in a StudyDate window holding an unknown-device CT and
+    some, not all, of the CT and DX studies."""
+    from repro_torch.catalog import And, In, Range
+
+    eligible = sorted((s.study_date, s.accession) for s in studies if s.modality in ("CT", "DX"))
+    unknown = next(i for i, (_, acc) in enumerate(eligible) if "UCT" in acc)
+    lo = max(0, min(unknown, len(eligible) - 5))
+    window = eligible[lo:lo + 5]
+    want = [acc for d, acc in eligible if window[0][0] <= d <= window[-1][0]]
+    assert any("UCT" in a for a in want) and len(want) < len(eligible), want
+    return And(In("modality", ["CT", "DX"]), Range("study_date", int(window[0][0]),
+                                                   int(window[-1][0]))), sorted(want)
+
+
+def make_source(studies, device):
+    from repro_torch.catalog import StudyCatalog
+    from repro_torch.storage.object_store import StudyStore
+
+    source = StudyStore("lake")
+    for s in studies:
+        source.put_study(s.accession, s)
+    source.attach_catalog(StudyCatalog(device=device))
+    return source
+
+
+def deploy(path, source, tmp):
+    """A fresh serving deployment over ``source``: broker, journal, result
+    lake, audit ledger, pipeline on the card (the kernel path, or the host
+    codec and detector) and an autoscaled worker pool."""
+    from repro_torch.audit import AuditLedger
+    from repro_torch.core import DeidPipeline
+    from repro_torch.detect import DetectorPolicy
+    from repro_torch.lake import ResultLake
+    from repro_torch.queueing import Autoscaler, AutoscalerConfig, Broker, DeidWorker, Journal
+    from repro_torch.queueing import WorkerPool
+    from repro_torch.queueing.server import DeidService
+    from repro_torch.storage.object_store import StudyStore
+    from repro_torch.utils.timing import SimClock
+
+    clock = SimClock()
+    root = Path(tempfile.mkdtemp(prefix=f"{path}-", dir=tmp))
+    ledger = AuditLedger(root / "audit.jsonl", clock=clock)
+    broker = Broker(clock, visibility_timeout=300.0)
+    journal = Journal(root / "journal.jsonl")
+    lake = ResultLake(max_bytes=16 << 30, ledger=ledger)
+    pipe = DeidPipeline(device="cuda", detector_policy=DetectorPolicy(mode="registry_first"),
+                        lake=lake, ledger=ledger)
+    if path == "host":
+        pipe.executor.use_kernel = False
+    service = DeidService(broker, source, journal, result_lake=lake, pipeline=pipe,
+                          catalog=source.catalog, ledger=ledger)
+    service.register_study(STUDY_ID, key=b"s" * 32)
+    dest = StudyStore("researcher")
+    pool = WorkerPool(broker, Autoscaler(broker, AutoscalerConfig(), clock),
+                      lambda wid: DeidWorker(wid, pipe, source, dest, journal, ledger=ledger))
+    return types.SimpleNamespace(ledger=ledger, broker=broker, journal=journal, lake=lake,
+                                 pipeline=pipe, service=service, dest=dest, pool=pool)
+
+
+def serve(dep, query, mrns):
+    """submit_query, drain, resolve: (selection, ticket, wall seconds)."""
+    t0 = time.perf_counter()
+    sel, ticket = dep.service.submit_query(STUDY_ID, query, mrns)
+    dep.pool.drain()
+    dep.service.planner.resolve()
+    torch.cuda.synchronize()
+    return sel, ticket, time.perf_counter() - t0
+
+
+def close(dep):
+    dep.pipeline.executor.close()
+    dep.journal.close()
+    dep.ledger.close()
+
+
+def check_served(k_dep, k_run, h_dep, h_run, want):
+    """The kernel stack's query-then-de-identify against the host stack's."""
+    k_sel, k_ticket, _ = k_run
+    h_sel, h_ticket, _ = h_run
+    assert list(k_sel.accessions) == want, (k_sel.accessions, want)
+    assert k_sel == h_sel, "selection differs between the kernel and host stacks"
+    for t in (k_ticket, h_ticket):
+        assert t.done() and not t.failed and sorted(t.cold) == want, (t.cold, t.failed)
+    for f in ("hits", "coalesced", "cold", "rejected", "failed"):
+        assert getattr(k_ticket, f) == getattr(h_ticket, f), f
+    pseudo = k_dep.service._studies[STUDY_ID]
+    n_out = 0
+    for acc in want:
+        rid = f"{STUDY_ID}/{pseudo.accession(acc)}"
+        k_out, h_out = list(k_dep.dest.outputs(rid)), list(h_dep.dest.outputs(rid))
+        assert len(k_out) == len(h_out) > 0, acc
+        for a, b in zip(k_out, h_out):
+            assert a.elements == b.elements and a.encapsulated == b.encapsulated, acc
+            assert np.array_equal(a.pixels, b.pixels), acc
+        n_out += len(k_out)
+    assert (k_dep.journal.merged_manifest(STUDY_ID).to_json()
+            == h_dep.journal.merged_manifest(STUDY_ID).to_json())
+    assert k_dep.ledger.kind_counts() == h_dep.ledger.kind_counts()
+    assert k_dep.ledger.verify() == [] and h_dep.ledger.verify() == []
+    log(f"served (e): {len(want)} accessions, {k_sel.total_instances} instances, {n_out} delivered; "
+        f"outputs, manifests, selection and ledger kind counts equal to the host stack "
+        f"{json.dumps(k_dep.ledger.kind_counts())}; both ledgers verify")
+
+
+def run_serving_path(gen, us_device) -> int:
+    """Path (e). Returns the bitmap launches of its counted window."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    studies = serve_corpus(gen, us_device)
+    for s in studies:
+        log(f"serving study {s.accession}: {len(s.datasets)}x{s.datasets[0].pixels.shape} "
+            f"{s.device.id()} {s.study_date}")
+    query, want = serve_query(studies)
+    mrns = {s.accession: s.mrn for s in studies}
+    sources = {"kernel": make_source(studies, "cuda"), "host": make_source(studies, "cpu")}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        warm = deploy("kernel", sources["kernel"], tmp)  # outside the window: kernel loads
+        serve(warm, query, mrns)
+        close(warm)
+        k_dep = deploy("kernel", sources["kernel"], tmp)
+        reset_launches()
+        k_run = serve(k_dep, query, mrns)
+        launches = dict(LAUNCHES)
+        log(f"serving path launches: {json.dumps(launches)}")
+        for k in SERVE_KERNELS:
+            assert launches[k] > 0, f"kernel {k} never launched on the serving path"
+        h_dep = deploy("host", sources["host"], tmp)
+        h_run = serve(h_dep, query, mrns)
+        check_served(k_dep, k_run, h_dep, h_run, want)
+        # the replay is served warm from the result lake
+        published = k_dep.broker.total_published
+        reset_launches()
+        sel2, replay = k_dep.service.submit_query(STUDY_ID, query, mrns)
+        replayed = dict(LAUNCHES)
+        assert k_dep.broker.total_published == published, "the replay published work"
+        assert sorted(replay.hits) == want and not replay.cold and not replay.coalesced
+        assert replayed["bitmap"] == 1 and replayed["fused"] == 0, replayed
+        assert sel2 == k_run[0]
+        log(f"replay: all {len(replay.hits)} accessions warm, 0 publishes, launches "
+            f"{json.dumps(replayed)}")
+        for dep in (k_dep, h_dep):
+            close(dep)
+        secs = {"kernel": [], "host": []}
+        for r in range(ROUNDS):
+            for path in (("kernel", "host") if r % 2 == 0 else ("host", "kernel")):
+                dep = deploy(path, sources[path], tmp)
+                secs[path].append(serve(dep, query, mrns)[2])
+                close(dep)
+    mb = k_run[0].total_bytes / 1e6
+    log(f"query -> drained (e): {mb:.1f} MB cold; median s kernel stack "
+        f"{statistics.median(secs['kernel'])} host stack {statistics.median(secs['host'])}; MB/s "
+        f"kernel {mb / statistics.median(secs['kernel'])} host {mb / statistics.median(secs['host'])}; "
+        f"all runs {json.dumps(secs)}")
+    return launches["bitmap"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs only on a card")
@@ -620,6 +1034,7 @@ def main() -> None:
 
     rows = check_kernels(us.datasets[0].pixels.shape)
     rows.update(check_detector_kernels(us.datasets[0].pixels.shape))
+    rows.update(check_bitmap_kernel())
     pseudo = PseudonymService("IRB-SMOKE", TrustMode.POST_IRB, key=b"s" * 32)
 
     # the cold de-identification path (no detector); warm-up outside the
@@ -640,6 +1055,13 @@ def main() -> None:
     throughput([det_jobs[0], det_jobs[2]], pseudo)
     log(f"unknown-CT chunk (32,320,512) detection beside fused upload: "
         f"{json.dumps(detect_split(uct))}")
+
+    # the serving paths: the catalog at 2^22 rows (d), then query-then-
+    # de-identify through the broker and the worker pool (e)
+    catalog_launches = run_catalog_path()
+    launches["bitmap"] = run_serving_path(gen, us.device)
+    log(f"bitmap launches: catalog path (d) {catalog_launches}, serving path (e) "
+        f"{launches['bitmap']}")
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

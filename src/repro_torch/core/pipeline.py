@@ -3,13 +3,14 @@
 One :class:`DeidPipeline` instance is the unit each queue worker runs. It is
 deliberately stateless across instances (all request state rides in the
 :class:`DeidRequest`). Its batched executor runs on ``device`` (default
-``cuda:0``; pass ``device="cpu"`` for the plain PyTorch versions). The
-result lake is not ported yet: ``lake=`` raises ``NotImplementedError``.
+``cuda:0``; pass ``device="cpu"`` for the plain PyTorch versions). With a
+result lake attached (``lake=``), :meth:`DeidPipeline.run_study` replays
+cached instances and de-identifies only the cold remainder.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.audit.ledger import NULL_LEDGER
 from repro_torch.audit.records import DEID_EXECUTE
@@ -23,8 +24,11 @@ from repro_torch.core import scripts as default_scripts
 from repro_torch.dicom.dataset import DicomDataset
 from repro_torch.dicom.generator import SyntheticStudy
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.lake.fingerprint import RulesetFingerprint, callable_identity
 from repro_torch.obs.trace import NULL_TRACER
+
+if TYPE_CHECKING:  # type-only: repro_torch.lake imports stay lazy (no import cycle)
+    from repro_torch.lake.fingerprint import RulesetFingerprint
+    from repro_torch.lake.store import ResultLake
 
 
 @dataclass
@@ -88,15 +92,13 @@ class DeidPipeline:
         blank_fn=None,
         recompress: bool = True,
         batched: bool = True,
-        lake=None,
+        lake: Optional["ResultLake"] = None,
         detector_policy=None,
         tracer=None,
         registry=None,
         ledger=None,
         device: DeviceLike = None,
     ) -> None:
-        if lake is not None:
-            raise NotImplementedError("result lake not ported yet")
         self.device = resolve_device(device)
         self.filter = FilterStage(filter_script or default_scripts.DEFAULT_FILTER_SCRIPT)
         self.anonymizer = AnonymizerStage(
@@ -127,14 +129,18 @@ class DeidPipeline:
             "anonymizer": self.anonymizer.sha,
             "scrubber": self.scrub.sha,
         }
-        self.lake = None
-        self._fingerprint: Optional[RulesetFingerprint] = None
+        # optional content-addressed result cache; per-instance short-circuit
+        # happens in run_study, workers write study records back
+        self.lake = lake
+        self._fingerprint: Optional["RulesetFingerprint"] = None
 
-    def ruleset_fingerprint(self) -> RulesetFingerprint:
+    def ruleset_fingerprint(self) -> "RulesetFingerprint":
         """Fingerprint of this pipeline's full rule surface (scripts + device
         scrub geometry + output-shaping config). Computed once: scripts and
         config are immutable per pipeline."""
         if self._fingerprint is None:
+            from repro_torch.lake.fingerprint import RulesetFingerprint, callable_identity
+
             config = (
                 f"recompress={self.scrub.recompress}|sv={self.scrub.sv}|"
                 f"blank={callable_identity(self.scrub.blank_fn)}"
@@ -269,8 +275,14 @@ class DeidPipeline:
     def run_study(
         self, study: SyntheticStudy, request: DeidRequest, worker_id: str = ""
     ) -> StudyDeidResult:
-        """De-identify every instance of a study (the cold path: every
-        instance flows through filter/scrub/anonymize)."""
+        """De-identify every instance of a study.
+
+        With a result lake attached, each instance is first looked up by its
+        content-addressed key — hits replay the cached result (byte-identical
+        to the cold path) and only the cold remainder flows through
+        filter/scrub/anonymize; fresh results are written back. Without a
+        lake this is the plain batched path.
+        """
         manifest = Manifest(request_id=f"{request.research_study}/{request.anon_accession}")
         with self.tracer.span(
             "pipeline.run_study",
@@ -284,8 +296,42 @@ class DeidPipeline:
         self, study: SyntheticStudy, request: DeidRequest, worker_id: str,
         manifest: Manifest, _study_span,
     ) -> StudyDeidResult:
-        pairs = self._deid_datasets(study.datasets, request, worker_id)
-        result = StudyDeidResult([], manifest)
+        if self.lake is None:
+            pairs = self._deid_datasets(study.datasets, request, worker_id)
+            result = StudyDeidResult([], manifest)
+        else:
+            from repro_torch.lake.fingerprint import cache_key, instance_digest, request_salt
+            from repro_torch.lake.records import decode_instance_record, encode_instance_record
+
+            ruleset = self.ruleset_fingerprint().digest
+            salt = request_salt(request)
+            keys = [
+                cache_key(instance_digest(ds), ruleset, salt) for ds in study.datasets
+            ]
+            slots: List[Optional[Tuple[Optional[DicomDataset], ManifestEntry]]] = [
+                None
+            ] * len(keys)
+            cold: List[int] = []
+            for i, key in enumerate(keys):
+                blob = self.lake.get(key)
+                if blob is None:
+                    cold.append(i)
+                else:
+                    slots[i] = decode_instance_record(blob)
+            cold_pairs = self._deid_datasets(
+                [study.datasets[i] for i in cold], request, worker_id
+            )
+            assert len(cold_pairs) == len(cold)
+            for i, pair in zip(cold, cold_pairs):
+                slots[i] = pair
+                self.lake.put(keys[i], encode_instance_record(*pair))
+            for s in slots:  # every instance is either a hit or a cold result
+                assert s is not None
+            pairs = slots  # type: ignore[assignment]
+            result = StudyDeidResult(
+                [], manifest, instance_keys=keys,
+                cache_hits=len(keys) - len(cold), cache_misses=len(cold),
+            )
         _study_span.set(lake_hits=result.cache_hits, cold=result.cache_misses)
         for out, entry in pairs:
             manifest.add(entry)

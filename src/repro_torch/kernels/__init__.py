@@ -8,6 +8,8 @@
             detector (``csrc/textdetect.cu``)
   phi_detect - per-tile strong-edge density of the post-scrub audit
             (``csrc/phi_detect.cu``)
+  bitmap  - packed-bitmap predicate combine + popcount of the catalog's
+            query engine (``csrc/bitmap.cu``)
 
 A public op takes torch tensors: on a CUDA tensor it launches its kernel
 (or raises), on a CPU tensor it runs the plain PyTorch version. Each launch
@@ -18,6 +20,7 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {
     "fused": 0, "rice_prepass": 0, "rice_len_rem": 0, "scrub": 0, "textdetect": 0, "phi_detect": 0,
+    "bitmap": 0,
 }
 
 

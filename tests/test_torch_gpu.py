@@ -11,11 +11,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.catalog import And, Contains, In, Not, Range, StudyCatalog
 from repro_torch.core import DeidPipeline, PseudonymService, TrustMode, build_request
 from repro_torch.core.batch import BatchedDeidExecutor
 from repro_torch.detect import DetectorPolicy
 from repro_torch.dicom.generator import StudyGenerator
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.bitmap.ops import (
+    combine_bitmaps,
+    combine_bitmaps_torch,
+    pack_mask,
+    program_limits,
+)
+from repro_torch.kernels.bitmap.ref import combine_bitmaps_ref
 from repro_torch.kernels.fused.ops import fused_scrub_residuals
 from repro_torch.kernels.fused.ref import fused_ref
 from repro_torch.kernels.jls import entropy
@@ -153,3 +161,67 @@ def test_registry_first_pipeline_on_card_equals_host_path(cuda):
     for a, b in zip(got[0], want[0]):
         assert a.elements == b.elements and np.array_equal(a.pixels, b.pixels)
         assert phi_ops.audit_dataset(a) is phi_ops.audit_dataset(a, device="cpu") is False
+
+
+def _leaves(rng, n, k, device):
+    masks = [rng.random(n) < rng.random() for _ in range(k)] + [rng.random(n) < 0.9]
+    return torch.stack([pack_mask(torch.from_numpy(m).to(device)) for m in masks])
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, (1 << 16) - 5, (1 << 22) - 5])
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_bitmap_kernel_equals_plain_version(rng, cuda, n, k):
+    """Ragged row counts (the last word's tail bits) under a program with
+    NOTs, ORs and the final validity AND; counts exact."""
+    leaves = _leaves(rng, n, k, cuda)
+    prog = [("leaf", 0)]
+    for i in range(1, k):
+        prog += [("leaf", i)] + ([("not",)] if i % 2 else []) + [("or",) if i % 3 else ("and",)]
+    prog = tuple(prog) + (("not",), ("leaf", k), ("and",))
+    before = LAUNCHES["bitmap"]
+    got, count = combine_bitmaps(leaves, prog)
+    want, want_count = combine_bitmaps_torch(leaves, prog)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bitmap"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want) and count == int(want_count)
+    ref, ref_count = combine_bitmaps_ref(leaves.cpu().numpy().view(np.uint32), prog)
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), ref) and count == ref_count
+
+
+@pytest.mark.parametrize("n", [5, 32, 1000, 4097])
+def test_bitmap_not_rooted_program_never_counts_padding(cuda, n):
+    leaves = torch.stack([pack_mask(torch.zeros(n, dtype=torch.bool, device=cuda)),
+                          pack_mask(torch.ones(n, dtype=torch.bool, device=cuda))])
+    prog = (("leaf", 0), ("not",), ("leaf", 1), ("and",))
+    _, count = combine_bitmaps(leaves, prog)
+    assert count == n == int(combine_bitmaps_torch(leaves, prog)[1])
+
+
+def test_bitmap_kernel_refuses_programs_it_cannot_run(cuda):
+    max_ops, max_depth = program_limits()
+    leaves = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    too_long = (("leaf", 0),) + (("not",),) * max_ops
+    too_deep = (("leaf", 0),) * (max_depth + 1) + (("and",),) * max_depth
+    for prog in (too_long, too_deep, (("leaf", 2),), (("leaf", 0), ("and",)),
+                 (("leaf", 0), ("leaf", 1)), (("leaf", 0), ("xor",))):
+        with pytest.raises(ValueError, match="bitmap"):
+            combine_bitmaps(leaves, prog)
+    # the longest program it takes still runs
+    longest = (("leaf", 0),) + (("not",),) * (max_ops - 1)
+    assert torch.equal(combine_bitmaps(leaves, longest)[0],
+                       combine_bitmaps_torch(leaves, longest)[0])
+
+
+def test_catalog_on_card_equals_oracle(rng, cuda):
+    cat = StudyCatalog(block_rows=64, device=cuda)
+    mods = ["CT", "MR", "DX", "US"]
+    for i in range(40):
+        cat.ingest_rows(f"G{i:03d}", [
+            {"modality": mods[(i + j) % 4], "model": f"M{j % 3}", "study_date": 20150101 + i * 100,
+             "rows": 512, "cols": 512, "nbytes": 1000 + j} for j in range(25)], etag=f"e{i}")
+    for q in (Range("study_date", 20150101, 20150801),
+              And(In("modality", ["CT", "DX"]), Not(Contains("model", "1")))):
+        before = LAUNCHES["bitmap"]
+        got, want = cat.select(q), cat.select(q, mode="oracle")
+        assert LAUNCHES["bitmap"] == before + 1
+        assert got == want and got.total_instances > 0

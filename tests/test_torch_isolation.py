@@ -33,7 +33,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"},
     )
     n_modules, bad = out.stdout.split("\n")[:2]
-    assert int(n_modules) >= 48
+    assert int(n_modules) >= 71
     assert bad == ""
 
 
@@ -49,7 +49,8 @@ def test_no_source_imports_jax_or_repro(path):
 
 
 def test_every_kernel_source_names_the_tpu_kernel_it_replaces():
-    for cu in ("scrub.cu", "fused.cu", "entropy.cu", "textdetect.cu", "phi_detect.cu"):
+    for cu in ("scrub.cu", "fused.cu", "entropy.cu", "textdetect.cu", "phi_detect.cu",
+               "bitmap.cu"):
         text = (PORT / "csrc" / cu).read_text()
         assert "Replaces" in text and "src/repro/kernels/" in text and "Bound" in text
 
@@ -76,5 +77,15 @@ def test_package_lists_its_modules():
                    "repro_torch.kernels.scrub.ops", "repro_torch.carry", "repro_torch.device",
                    "repro_torch.kernels.textdetect.ops", "repro_torch.kernels.textdetect.ref",
                    "repro_torch.kernels.phi_detect.ops", "repro_torch.kernels.phi_detect.ref",
-                   "repro_torch.detect.regions"):
+                   "repro_torch.detect.regions",
+                   "repro_torch.kernels.bitmap.ops", "repro_torch.kernels.bitmap.ref",
+                   "repro_torch.catalog.catalog", "repro_torch.catalog.columns",
+                   "repro_torch.catalog.query", "repro_torch.lake.planner",
+                   "repro_torch.lake.records", "repro_torch.lake.store",
+                   "repro_torch.queueing.autoscaler", "repro_torch.queueing.broker",
+                   "repro_torch.queueing.journal", "repro_torch.queueing.server",
+                   "repro_torch.queueing.worker", "repro_torch.storage.object_store",
+                   "repro_torch.audit.ledger", "repro_torch.utils.bytesize",
+                   "repro_torch.utils.logging", "repro_torch.utils.timing",
+                   "repro_torch.utils.wal"):
         assert needed in names

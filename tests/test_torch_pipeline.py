@@ -114,14 +114,24 @@ class TestPipelineContracts:
                 DeidPipeline()
 
     def test_lake_refused_detector_scans(self, gen):
-        """The result lake is still refused; an enabled detector policy
-        builds and scans an unknown device's instances."""
-        with pytest.raises(NotImplementedError):
-            DeidPipeline(lake=object(), device="cpu")
+        """A result lake too small for any instance record refuses every
+        write, as the JAX package's does, and the study is still delivered
+        cold; an enabled detector policy builds and scans an unknown
+        device's instances."""
+        from repro.lake import ResultLake as JaxLake
+
+        from repro_torch.lake import ResultLake
+
         s = gen.gen_study("PIPE-UNK", device=gen.unknown_device("PIPE-UNK", "CT"), n_images=2)
-        port_study, port_req, _ = _both(s)
-        pipe = DeidPipeline(detector_policy=DetectorPolicy(), recompress=False, device="cpu")
-        pipe.process_study(port_study, port_req)
+        port_study, port_req, jax_req = _both(s)
+        lake, jax_lake = ResultLake(max_bytes=64), JaxLake(max_bytes=64)
+        pipe = DeidPipeline(detector_policy=DetectorPolicy(), recompress=False, lake=lake,
+                            device="cpu")
+        result = pipe.run_study(port_study, port_req)
+        jax_result = JaxPipeline(lake=jax_lake).run_study(s, jax_req)
+        assert (result.cache_hits, result.cache_misses) == (0, 2)
+        assert lake.stats.oversize_rejects == jax_lake.stats.oversize_rejects == 2
+        assert len(lake) == 0 and len(result.delivered) == 2
         assert pipe.scrub.detect_stats.detector_runs == 2
         assert pipe.executor.stats.detect_instances == 2
         # a disabled policy is the registry-only behaviour, as in the JAX package
