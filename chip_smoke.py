@@ -7,18 +7,21 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. card   — print the card's name and power limit (nvidia-smi), build the
             CUDA kernels of ``src/repro_torch/csrc`` with nvcc for sm_90a
-            (one nvcc per source, started together).
+            (one nvcc per source, all seven started together).
 2. kernels — hold each kernel against its plain PyTorch version on the card
             with ``torch.equal`` at the main path's shapes (CT, DX, US chunks,
             the bitmap combine of a 2^22-row scan and its ragged, K=1+1,
             K=8+1 and not-rooted variants, an over-long program refused,
             every selection value at one small shape; for the two detector
             kernels the unknown-device CT and DX chunks, a float32 stack, a
-            (16, 64) tile and the float32 threshold straddle 2457.0001), and
-            time kernel, plain version and (where one exists) a single
-            PyTorch call computing the same function, cold L2, CUDA events,
-            median of 21.
-3. pipeline — two paths, each driven with the launch counts set to 0 just
+            (16, 64) tile and the float32 threshold straddle 2457.0001; for
+            the jls kernel every selection value at the CT, DX and US stacks,
+            a full-range uint16 stack and the edges H = 1, W = 1, W = 257,
+            and its refusals), and time kernel, plain version and (where one
+            exists) a single PyTorch call computing the same function, cold
+            L2, CUDA events, median of 21. Then the staged scrub -> jls pair
+            against the fused kernel at the CT chunk (equal; both timed).
+3. pipeline — paths, each driven with the launch counts set to 0 just
             before it and read just after:
             the cold de-identification of a 256-slice CT, a DX and a US study
             (no detector; then US with recompress=False, the scrub kernel);
@@ -37,7 +40,10 @@ Phases, in order; any failure raises and exits non-zero:
             untraced runs each, in alternating order), the H2D / kernels /
             D2H / host-splice split of one CT chunk, and the detection
             upload beside the fused upload of one unknown-CT chunk.
-            Then two serving paths, each in its own counted window:
+            (f) the kernel-assisted encode: ``encode_batch`` (jls) and
+            ``fused_encode_batch`` over the CT, DX and US stacks, byte-equal
+            to the host ``codec.encode``; MB/s against the host loop.
+            Then the serving paths:
             (d) a metadata catalog of 2^22 rows on the card
             (``StudyCatalog(device="cuda")``, 8192 accessions x 512
             instances): date ranges at ~1/10/50 % selectivity, which zone
@@ -55,7 +61,17 @@ Phases, in order; any failure raises and exits non-zero:
             and a replay of the query publishes nothing, launches bitmap
             once and fused never. Prints query -> drained seconds and MB/s
             of cold bytes for both stacks (fresh deployments, median of
-            ROUNDS, alternating).
+            ROUNDS, alternating);
+            (h) change-feed ingest on (e)'s two deployments: a ``PacsFeed``
+            commits updates, a create and a delete, drained through
+            ``ChangePooler`` -> broker -> ``IngestApplier`` with a pooler
+            crash and a restart from the ``Checkpoint``; the resubmitted
+            query sends exactly the new or changed selected accessions cold
+            and the rest warm, equal to the host stack;
+            (g) the operator launcher ``repro_torch.launch.deid_service`` at
+            its defaults on the card, plain and ``--chaos``, equal to the
+            same runs with ``--device cpu`` (all but the counted plain card
+            run in child processes, the four runs at once).
 4. result — one JSON line listing every kernel, then the device line.
 
 Needs CUDA and the repository's ``src/`` beside this file; imports nothing of
@@ -106,6 +122,7 @@ KERNELS = {
     "phi_detect": ("src/repro_torch/csrc/phi_detect.cu",
                    "src/repro/kernels/phi_detect/phi_detect.py:45"),
     "bitmap": ("src/repro_torch/csrc/bitmap.cu", "src/repro/kernels/bitmap/bitmap.py:53"),
+    "jls": ("src/repro_torch/csrc/jls.cu", "src/repro/kernels/jls/jls.py:75"),
 }
 
 
@@ -418,6 +435,96 @@ def check_bitmap_kernel() -> dict:
     return {"bitmap": row}
 
 
+def check_jls_kernel(us_shape) -> dict:
+    """Kernel 8, the JPEG-Lossless predictor, against its plain version
+    (``torch.equal``) at the CT chunk and the DX and US stacks (every sv), a
+    full-range uint16 stack, every sv at a small ragged shape in uint8 and
+    uint16, and the edges H = 1, W = 1 and W = 257; the launch refusals.
+    Timed at all three stacks (the CT chunk is its row); then the staged
+    scrub -> jls pair against the fused kernel at the CT chunk with R = 2."""
+    from repro_torch.kernels.fused.ops import fused_scrub_residuals
+    from repro_torch.kernels.jls.ops import jls_residuals
+    from repro_torch.kernels.jls.ref import residuals_ref
+    from repro_torch.kernels.scrub.ops import pack_rects, scrub_images
+
+    rng = np.random.default_rng(14)
+
+    def full_range(shape, dtype):
+        return rng.integers(0, np.iinfo(dtype).max + 1, size=shape, dtype=np.int64).astype(dtype)
+
+    def case(what, images_np, svs):
+        images = torch.from_numpy(images_np).cuda()
+        bits = images_np.dtype.itemsize * 8
+        for sv in svs:
+            got, want = jls_residuals(images, sv=sv), residuals_ref(images, sv, bits)
+            torch.cuda.synchronize()
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"jls kernel != plain version on {what}, sv={sv}")
+        log(f"  equal: {what}, sv {list(svs)}")
+        return images
+
+    every = range(1, 8)
+    uH, uW = us_shape
+    stacks = {
+        "CT": case("CT (32,512,512) u16", rng.normal(1200, 300, size=(32, 512, 512))
+                   .clip(0, 4095).astype(np.uint16), every),
+        "DX": case("DX (4,2500,2048) u16 full range", full_range((4, 2500, 2048), np.uint16), every),
+        "US": case(f"US (32,{uH},{uW}) u8 full range", full_range((32, uH, uW), np.uint8), every),
+    }
+    case("CT (32,512,512) u16 full range", full_range((32, 512, 512), np.uint16), (1, 4, 5, 6))
+    for dtype in (np.uint8, np.uint16):
+        name = np.dtype(dtype).name
+        case(f"(2,70,90) {name}", full_range((2, 70, 90), dtype), every)
+        for shape, edge in (((3, 1, 300), "H=1"), ((3, 70, 1), "W=1"), ((2, 9, 257), "W=257")):
+            case(f"{edge} {shape} {name}", full_range(shape, dtype), every)
+    for bad in ({"sv": 0}, {"sv": 8}, {"bits": 31}):
+        try:
+            jls_residuals(stacks["CT"], **bad)
+        except ValueError as e:
+            log(f"  refused: {bad}: {e}")
+        else:
+            raise AssertionError(f"jls kernel took {bad}")
+    log("jls kernel: equals its plain version on every case")
+
+    rows = {}
+    for name, images in stacks.items():
+        npx = images.numel()
+        # one read of the plane, one int32 write; ~12 integer operations a
+        # pixel (three neighbour loads' bounds, predictor, mask, wrap)
+        b_ms, b_by = bound(npx * (images.element_size() + 4), npx * 12)
+        rows[name] = {
+            "ms": time_ms(lambda: jls_residuals(images, sv=1)),
+            "plain_ms": time_ms(lambda: residuals_ref(images, 1, images.element_size() * 8)),
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,  # no single PyTorch call computes the residuals
+            "max_abs_err": 0,
+            "shape": f"{tuple(images.shape)} {str(images.dtype).removeprefix('torch.')}, sv=1",
+        }
+        log(f"time jls {name}: {json.dumps(rows[name])}, "
+            f"{100 * b_ms / rows[name]['ms']:.1f} % of the bound")
+
+    # the staged pair (scrub, then jls) against the fused kernel: 10 against
+    # 6 B/px in uint16
+    ct = stacks["CT"]
+    rects = torch.from_numpy(pack_rects([[(256, 0, 256, 22), (300, 22, 212, 80)]] * 32)).cuda()
+    staged, fused = jls_residuals(scrub_images(ct, rects), sv=1), fused_scrub_residuals(ct, rects)
+    torch.cuda.synchronize()
+    if not torch.equal(staged, fused):
+        raise AssertionError("staged scrub -> jls != fused kernel at the CT chunk")
+    npx = ct.numel()
+    pair = {}
+    for name, fn, nbytes in (
+            ("staged", lambda: jls_residuals(scrub_images(ct, rects), sv=1), npx * (4 + 6)),
+            ("fused", lambda: fused_scrub_residuals(ct, rects, sv=1), npx * 6)):
+        pair[name] = {"ms": time_ms(fn), "bound_ms": bound(nbytes + rects.numel() * 4, 0)[0],
+                      "bytes_per_px": nbytes // npx}
+    pair["staged_over_fused"] = pair["staged"]["ms"] / pair["fused"]["ms"]
+    log(f"staged scrub -> jls vs fused at the CT chunk (32,512,512) u16, R=2: equal; "
+        f"{json.dumps(pair)}")
+    return {"jls": rows["CT"]}
+
+
 # ---------------------------------------------------------------- phase 3
 def chunk_split(study) -> dict:
     """H2D / kernels / D2H / host splice of one 32-slice CT chunk, driven
@@ -690,6 +797,157 @@ def run_detector_path(jobs, n_audited, pseudo) -> dict:
     return launches
 
 
+def run_encode_path(studies) -> dict:
+    """Path (f), the kernel-assisted encode: ``encode_batch`` (jls kernel)
+    and ``fused_encode_batch`` (fused kernel, the study's PHI rects) over
+    each study's stack in 32-plane chunks, in a counted window; every
+    payload byte-equal to the host ``codec.encode`` of its plane (blanked,
+    for the fused encode). Then MB/s of ``encode_batch`` against the host
+    ``codec.encode`` loop, ROUNDS alternating runs. Returns the launches."""
+    from repro_torch.core.scrub import numpy_blank
+    from repro_torch.dicom import codec
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.fused.ops import fused_encode_batch
+    from repro_torch.kernels.jls.ops import encode_batch
+
+    stacks = [(s, np.stack([d.pixels for d in s.datasets]), study_rects(s)) for s in studies]
+
+    def kernel_encode(planes):
+        return [b for c0 in range(0, len(planes), 32) for b in encode_batch(planes[c0:c0 + 32])]
+
+    def kernel_fused(planes, rects):
+        return [b for c0 in range(0, len(planes), 32)
+                for b in fused_encode_batch(planes[c0:c0 + 32], [rects] * len(planes[c0:c0 + 32]))]
+
+    def host_encode(planes):
+        return [codec.encode(p, 1) for p in planes]
+
+    kernel_encode(stacks[-1][1][:1])  # warm-up outside the window: kernel loads
+    kernel_fused(stacks[-1][1][:1], stacks[-1][2])
+    reset_launches()
+    k_out = [(kernel_encode(planes), kernel_fused(planes, rects)) for _, planes, rects in stacks]
+    launches = dict(LAUNCHES)
+    log(f"encode path launches: {json.dumps(launches)}")
+    for k in ("jls", "fused"):
+        assert launches[k] > 0, f"kernel {k} never launched on the encode path"
+    for (s, planes, rects), (k_enc, k_fused) in zip(stacks, k_out):
+        assert k_enc == host_encode(planes), f"encode_batch != codec.encode: {s.accession}"
+        blanked = [numpy_blank(p, rects) for p in planes]
+        assert k_fused == host_encode(blanked), f"fused_encode_batch != codec.encode: {s.accession}"
+        # the decoder is a slow host oracle (20 s a DX plane here): the first
+        # payload of each encode of the CT and US stacks; phase 3's main path
+        # decodes a blanked DX plane
+        if s.modality != "DX":
+            assert np.array_equal(codec.decode(k_enc[0]), planes[0]), s.accession
+            assert np.array_equal(codec.decode(k_fused[0]), blanked[0]), s.accession
+        log(f"encode {s.accession} {planes.shape} {planes.dtype}, {len(rects)} rects: "
+            f"{len(k_enc)} encode_batch and {len(k_fused)} fused_encode_batch payloads equal to "
+            f"codec.encode; {sum(map(len, k_enc)) / planes.nbytes:.4f} of the pixel bytes")
+    secs = {(s.accession, path): [] for s, _, _ in stacks for path in ("kernel", "host")}
+    for r in range(ROUNDS):
+        for s, planes, _ in stacks:
+            for path in (("kernel", "host") if r % 2 == 0 else ("host", "kernel")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (kernel_encode if path == "kernel" else host_encode)(planes)
+                secs[(s.accession, path)].append(time.perf_counter() - t0)
+    for s, planes, _ in stacks:
+        mb = planes.nbytes / 1e6
+        rates = {p: sorted(mb / t for t in secs[(s.accession, p)]) for p in ("kernel", "host")}
+        log(f"encode throughput {s.accession} {planes.shape}: {mb:.1f} MB; MB/s median "
+            f"encode_batch {statistics.median(rates['kernel'])} host codec.encode "
+            f"{statistics.median(rates['host'])}; all runs {json.dumps(rates)}")
+    return launches
+
+
+# path (g): each launcher run but the counted card run goes to a child
+# process, all started together (a run's host time is mostly the at-rest XOR
+# of its archive, one core each). A child zeroes the launch counts, runs the
+# launcher and prints one JSON line: its returned dict, wall seconds and
+# the counts.
+_LAUNCHER_CHILD = """
+import contextlib, io, json, sys, time
+sys.path.insert(0, "src")
+import torch
+from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.launch.deid_service import main
+argv = json.loads(sys.argv[1])
+reset_launches()
+t0 = time.perf_counter()
+with contextlib.redirect_stdout(io.StringIO()):
+    out = main(argv)
+if "--device" not in argv:
+    torch.cuda.synchronize()
+print(json.dumps({"result": out, "wall_s": time.perf_counter() - t0, "launches": dict(LAUNCHES)}))
+"""
+LAUNCHER_FIELDS = ("studies", "instances", "minutes", "cost_usd", "crashes", "health", "bytes",
+                   "throughput")
+LAUNCHER_KERNELS = ("fused", "rice_prepass", "rice_len_rem")
+LAUNCHER_MODES = {"plain": (), "chaos": ("--chaos",)}
+
+
+def run_launcher_path() -> dict:
+    """Path (g), the operator launcher ``repro_torch.launch.deid_service``
+    at its defaults (30 studies x 3 images, seed 0), on the card plain and
+    ``--chaos`` and the same arguments with ``--device cpu``, each with a
+    fresh journal. The plain card run goes in this process, in a counted
+    window; the other three run in child processes started just before it.
+    The card runs must equal the CPU runs in every field: they are one
+    package, so the archive sizes (``bytes``, ``throughput``) must match
+    too. Returns the launches of the plain card run."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.deid_service import main as launcher
+
+    root = Path(__file__).resolve().parent
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-launch-") as tmp:
+        def argv(where, mode):
+            device = ("--device", "cpu") if where == "cpu" else ()
+            return ["--journal", str(Path(tmp) / f"{where}-{mode}.jsonl"), *device,
+                    *LAUNCHER_MODES[mode]]
+
+        children = {
+            (where, mode): subprocess.Popen(
+                [sys.executable, "-c", _LAUNCHER_CHILD, json.dumps(argv(where, mode))],
+                cwd=root, stdout=subprocess.PIPE, text=True)
+            for where, mode in (("card", "chaos"), ("cpu", "plain"), ("cpu", "chaos"))
+        }
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            out = launcher(argv("card", "plain"))
+            torch.cuda.synchronize()
+            runs[("card", "plain")] = {"result": out, "wall_s": time.perf_counter() - t0,
+                                       "launches": dict(LAUNCHES)}
+            for key, child in children.items():
+                stdout, _ = child.communicate(timeout=900)
+                if child.returncode != 0:
+                    raise RuntimeError(f"launcher run {key} failed (rc {child.returncode})")
+                runs[key] = json.loads(stdout.strip().splitlines()[-1])
+        finally:
+            for child in children.values():
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+    for mode in LAUNCHER_MODES:
+        card, cpu = runs[("card", mode)], runs[("cpu", mode)]
+        for f in LAUNCHER_FIELDS:
+            # a child's dict went through JSON: compare in that form
+            assert json.loads(json.dumps(card["result"][f])) == cpu["result"][f], (mode, f)
+        assert (card["result"]["crashes"] > 0) == (mode == "chaos"), card["result"]["crashes"]
+        for k in LAUNCHER_KERNELS:
+            assert card["launches"][k] > 0, f"kernel {k} never launched on the launcher path ({mode})"
+        mb = card["result"]["bytes"] / 1e6
+        log(f"launcher (g) {mode}: card equal to --device cpu in {', '.join(LAUNCHER_FIELDS)}; "
+            f"{card['result']['studies']} studies, {card['result']['instances']}, "
+            f"{mb:.1f} MB archive; wall s card {card['wall_s']} cpu {cpu['wall_s']} "
+            f"(the four runs overlap); MB/s card {mb / card['wall_s']} "
+            f"cpu {mb / cpu['wall_s']}; sim minutes {card['result']['minutes']}, "
+            f"cost ${card['result']['cost_usd']}, health {json.dumps(card['result']['health'])}; "
+            f"launches {json.dumps(card['launches'])}")
+    return runs[("card", "plain")]["launches"]
+
+
 # ------------------------------------------------- phase 3: serving paths
 _MODALITIES = ["CT", "MR", "DX", "US", "CR", "PT"]
 _MAKES = ["GE Medical", "Siemens", "Philips", "Canon"]
@@ -898,8 +1156,9 @@ def deploy(path, source, tmp):
     dest = StudyStore("researcher")
     pool = WorkerPool(broker, Autoscaler(broker, AutoscalerConfig(), clock),
                       lambda wid: DeidWorker(wid, pipe, source, dest, journal, ledger=ledger))
-    return types.SimpleNamespace(ledger=ledger, broker=broker, journal=journal, lake=lake,
-                                 pipeline=pipe, service=service, dest=dest, pool=pool)
+    return types.SimpleNamespace(clock=clock, root=root, source=source, ledger=ledger,
+                                 broker=broker, journal=journal, lake=lake, pipeline=pipe,
+                                 service=service, dest=dest, pool=pool)
 
 
 def serve(dep, query, mrns):
@@ -947,8 +1206,9 @@ def check_served(k_dep, k_run, h_dep, h_run, want):
         f"{json.dumps(k_dep.ledger.kind_counts())}; both ledgers verify")
 
 
-def run_serving_path(gen, us_device) -> int:
-    """Path (e). Returns the bitmap launches of its counted window."""
+def run_serving_path(gen, us_device) -> dict:
+    """Path (e), then path (h) on its deployments. Returns the launches of
+    each one's counted window."""
     from repro_torch.kernels import LAUNCHES, reset_launches
 
     studies = serve_corpus(gen, us_device)
@@ -983,20 +1243,178 @@ def run_serving_path(gen, us_device) -> int:
         assert sel2 == k_run[0]
         log(f"replay: all {len(replay.hits)} accessions warm, 0 publishes, launches "
             f"{json.dumps(replayed)}")
-        for dep in (k_dep, h_dep):
-            close(dep)
         secs = {"kernel": [], "host": []}
         for r in range(ROUNDS):
             for path in (("kernel", "host") if r % 2 == 0 else ("host", "kernel")):
                 dep = deploy(path, sources[path], tmp)
                 secs[path].append(serve(dep, query, mrns)[2])
                 close(dep)
-    mb = k_run[0].total_bytes / 1e6
-    log(f"query -> drained (e): {mb:.1f} MB cold; median s kernel stack "
-        f"{statistics.median(secs['kernel'])} host stack {statistics.median(secs['host'])}; MB/s "
-        f"kernel {mb / statistics.median(secs['kernel'])} host {mb / statistics.median(secs['host'])}; "
-        f"all runs {json.dumps(secs)}")
-    return launches["bitmap"]
+        mb = k_run[0].total_bytes / 1e6
+        log(f"query -> drained (e): {mb:.1f} MB cold; median s kernel stack "
+            f"{statistics.median(secs['kernel'])} host stack {statistics.median(secs['host'])}; "
+            f"MB/s kernel {mb / statistics.median(secs['kernel'])} host "
+            f"{mb / statistics.median(secs['host'])}; all runs {json.dumps(secs)}")
+        # path (h): the change feed mutates the corpus under both deployments
+        ingest_launches = run_ingest_path(k_dep, h_dep, studies, query, mrns)
+        for dep in (k_dep, h_dep):
+            close(dep)
+    return {"serving": launches, "ingest": ingest_launches}
+
+
+# path (h): the change feed's seed, and the kernels its counted window needs.
+# Under this seed one selected CT's re-acquisition keeps a StudyDate inside
+# the query's window and another's leaves it, so the resubmit meets both a
+# changed selected study and one that drops out of the selection.
+FEED_SEED = 1
+INGEST_KERNELS = ("bitmap", "fused", "rice_prepass", "rice_len_rem")
+
+
+def plan_mutations(studies, query, selected):
+    """Path (h)'s commits, in order: updates of 2 selected CT accessions, 1
+    create the query selects, 1 delete of another selected accession. A
+    re-acquired study gets a new StudyDate, so an update may leave the
+    window: one update that stays and one that leaves are taken where the
+    selection has them. The create is chosen to land in the window, which
+    keeps the expected cold set non-empty. Dates come from a probe feed of
+    the same seed (one image a study: the date does not depend on the
+    count)."""
+    from repro_torch.ingest import PacsFeed
+
+    lo, hi = query.preds[1].lo, query.preds[1].hi
+
+    def v1_in_window(acc):
+        probe = PacsFeed(FEED_SEED, modality="CT", images_per_study=1)
+        probe.commit("create", acc)
+        return lo <= int(probe.fetch(acc)[0].study_date) <= hi
+
+    ct = [s.accession for s in studies if s.accession in selected and s.modality == "CT"]
+    stays = [a for a in ct if v1_in_window(a)]
+    leaves = [a for a in ct if a not in stays]
+    updates = (stays[:1] + leaves[:1]) if stays and leaves else (stays + leaves)[:2]
+    create = next(a for a in (f"SERVE-NEW{i}" for i in range(1000)) if v1_in_window(a))
+    delete = next(a for a in selected if a not in updates)
+    assert len(updates) == 2, ct
+    return [("update", updates[0]), ("update", updates[1]), ("create", create),
+            ("delete", delete)]
+
+
+def drain_feed(dep, studies, plan):
+    """Commit ``plan`` to a fresh ``PacsFeed`` that adopted the corpus and
+    drain it through ``ChangePooler`` -> broker -> ``IngestApplier`` into the
+    deployment's source store, with one ``PoolerCrash`` mid-batch and a
+    restart from the durable ``Checkpoint``."""
+    from repro_torch.ingest import ChangePooler, Checkpoint, IngestApplier, PacsFeed, PoolerCrash
+    from repro_torch.queueing import Broker
+
+    feed = PacsFeed(FEED_SEED, modality="CT", images_per_study=64)
+    for s in studies:
+        feed.adopt(s.accession, s)
+    for op, acc in plan:
+        feed.commit(op, acc)
+    broker = Broker(dep.clock, visibility_timeout=60.0)
+    path = dep.root / "ingest.ckpt"
+
+    def process(ckpt):
+        return (ChangePooler(feed, broker, ckpt, dep.clock, seed=FEED_SEED, batch=3),
+                IngestApplier(broker, feed, dep.source, ckpt, ledger=dep.ledger))
+
+    pooler, applier = process(Checkpoint(path))
+    applied, crashes = [], 0
+    t0 = time.perf_counter()
+    for poll in range(100):
+        if not pooler.behind() and broker.empty():
+            break
+        try:
+            pooler.poll_once(crash_after=1 if poll == 0 else None)
+        except PoolerCrash:
+            crashes += 1
+            pooler.checkpoint.close()
+            pooler, applier = process(Checkpoint(path))
+        applied += applier.drain()
+        dep.clock.advance(30.0)
+    secs = time.perf_counter() - t0
+    assert not pooler.behind() and broker.empty() and crashes == 1
+    ckpt = pooler.checkpoint
+    ckpt.close()
+    return types.SimpleNamespace(
+        feed=feed, applied=[(op.seq, op.op, op.accession, op.etag, op.rows) for op in applied],
+        outcomes=list(Checkpoint(path).outcome_log), secs=secs,
+        stats=(pooler.stats.as_dict(), applier.stats.as_dict()))
+
+
+def run_ingest_path(k_dep, h_dep, studies, query, mrns) -> dict:
+    """Path (h): change-feed ingest into path (e)'s deployments, then
+    incremental re-de-identification. Both deployments have served the
+    query; the feed commits updates, a create and a delete; the resubmitted
+    query must send exactly the selected accessions that are new or whose
+    source etag changed cold (amplification 1.0), serve every other one
+    warm, and deliver nothing of the deleted one. The kernel stack runs in a
+    counted window and must equal the host stack in applied ops, checkpoint
+    outcomes, selection, ticket and ledger kind counts."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    first = k_dep.source.catalog.select(query)
+    plan = plan_mutations(studies, query, list(first.accessions))
+    log(f"ingest (h) first selection {list(first.accessions)}; plan {plan}")
+    before = {a: k_dep.source.study_etag(a) for a in first.accessions}
+    # the kernel deployment also served (e)'s replay: compare what (h) adds
+    kinds_before = {name: dep.ledger.kind_counts() for name, dep in (("kernel", k_dep),
+                                                                    ("host", h_dep))}
+    results = {}
+    for name, dep in (("kernel", k_dep), ("host", h_dep)):
+        if name == "kernel":
+            reset_launches()
+        drained = drain_feed(dep, studies, plan)
+        mrns2 = dict(mrns)
+        for _, acc in plan:
+            fetched = drained.feed.fetch(acc)
+            if fetched is not None:
+                mrns2[acc] = fetched[0].mrn
+        sel, ticket, secs = serve(dep, query, mrns2)
+        if name == "kernel":
+            launches = dict(LAUNCHES)
+        results[name] = (drained, sel, ticket, secs)
+    log(f"ingest path launches: {json.dumps(launches)}")
+    for k in INGEST_KERNELS:
+        assert launches[k] > 0, f"kernel {k} never launched on the ingest path"
+    (k_dr, k_sel, k_ticket, k_secs), (h_dr, h_sel, h_ticket, h_secs) = (
+        results["kernel"], results["host"])
+    deleted = plan[-1][1]
+    expected = sorted(a for a in k_sel.accessions
+                      if a not in before or k_dep.source.study_etag(a) != before[a])
+    assert expected, "the mutations left nothing of the selection to re-de-identify"
+    assert k_sel == k_dep.source.catalog.select(query, mode="oracle"), "card select != oracle"
+    assert deleted not in k_sel.accessions and deleted not in k_ticket.outputs
+    assert not k_ticket.failed and k_ticket.done()
+    assert sorted(k_ticket.cold) == expected, (k_ticket.cold, expected)
+    assert sorted(k_ticket.hits) == sorted(set(k_sel.accessions) - set(expected))
+    assert not k_ticket.coalesced
+    assert k_dr.applied == h_dr.applied and k_dr.outcomes == h_dr.outcomes
+    assert k_dr.stats == h_dr.stats
+    assert k_sel == h_sel, "selection differs between the kernel and host stacks"
+    for f in ("hits", "coalesced", "cold", "rejected", "failed"):
+        assert getattr(k_ticket, f) == getattr(h_ticket, f), f
+    added = {name: {k: n - kinds_before[name].get(k, 0) for k, n in dep.ledger.kind_counts().items()
+                    if n != kinds_before[name].get(k, 0)}
+             for name, dep in (("kernel", k_dep), ("host", h_dep))}
+    assert added["kernel"] == added["host"], added
+    refreshed = {name: (dep.service.planner.stats.stale_refreshes, dep.journal.supersessions)
+                 for name, dep in (("kernel", k_dep), ("host", h_dep))}
+    assert refreshed["kernel"] == refreshed["host"], refreshed
+    assert added["kernel"]["ingest_apply"] == len(k_dr.outcomes)  # one record an outcome
+    assert k_dep.ledger.verify() == [] and h_dep.ledger.verify() == []
+    events = k_dr.feed.last_seq
+    log(f"ingest (h): {events} feed events, applied {[(s, op, a) for s, op, a, _, _ in k_dr.applied]}, "
+        f"outcomes {[o['outcome'] for o in k_dr.outcomes]}, pooler/applier {json.dumps(k_dr.stats)}; "
+        f"resubmit selects {list(k_sel.accessions)}: cold {sorted(k_ticket.cold)} (expected "
+        f"{expected}, amplification {len(k_ticket.cold) / len(expected)}), warm "
+        f"{sorted(k_ticket.hits)}, {deleted} deleted and not delivered; equal to the host stack; "
+        f"ledger records added {json.dumps(added['kernel'])}; planner stale refreshes and journal "
+        f"supersessions {refreshed['kernel']}")
+    log(f"ingest (h) drain: events/s kernel stack {events / k_dr.secs} host stack "
+        f"{events / h_dr.secs}; resubmit query -> drained s kernel stack {k_secs} host stack "
+        f"{h_secs}")
+    return launches
 
 
 def main() -> None:
@@ -1035,6 +1453,7 @@ def main() -> None:
     rows = check_kernels(us.datasets[0].pixels.shape)
     rows.update(check_detector_kernels(us.datasets[0].pixels.shape))
     rows.update(check_bitmap_kernel())
+    rows.update(check_jls_kernel(us.datasets[0].pixels.shape))
     pseudo = PseudonymService("IRB-SMOKE", TrustMode.POST_IRB, key=b"s" * 32)
 
     # the cold de-identification path (no detector); warm-up outside the
@@ -1056,17 +1475,28 @@ def main() -> None:
     log(f"unknown-CT chunk (32,320,512) detection beside fused upload: "
         f"{json.dumps(detect_split(uct))}")
 
+    # the kernel-assisted encode (f): the jls and fused kernels under the
+    # host Golomb-Rice coder
+    launches["jls"] = run_encode_path([ct, dx, us])["jls"]
+
     # the serving paths: the catalog at 2^22 rows (d), then query-then-
-    # de-identify through the broker and the worker pool (e)
+    # de-identify through the broker and the worker pool (e), then change-
+    # feed ingest and incremental re-de-identification on (e)'s deployments
     catalog_launches = run_catalog_path()
-    launches["bitmap"] = run_serving_path(gen, us.device)
+    served = run_serving_path(gen, us.device)
+    launches["bitmap"] = served["serving"]["bitmap"]
     log(f"bitmap launches: catalog path (d) {catalog_launches}, serving path (e) "
-        f"{launches['bitmap']}")
+        f"{launches['bitmap']}, ingest path (h) {served['ingest']['bitmap']}")
+
+    # the operator launcher (g) at its defaults
+    run_launcher_path()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        row = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "equal": True, **rows[name]})
+                        "launches": launches[name], "equal": True, **row,
+                        "pct_of_bound": 100 * row["bound_ms"] / row["ms"]})
     log(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
-"""Tamper-evident audit plane: the hash-chained PHI-access ledger and its
-record taxonomy. The accounting-of-disclosures report is not ported yet."""
+"""Tamper-evident audit plane: hash-chained PHI-access ledger, per-delivery
+provenance, and the accounting-of-disclosures report (DESIGN.md §14)."""
 from repro_torch.audit.ledger import GENESIS_SHA, AuditLedger, NULL_LEDGER, NullLedger
 from repro_torch.audit.records import (
     DEAD_LETTER,
@@ -19,12 +19,15 @@ from repro_torch.audit.records import (
     canonical_json,
     record_sha,
 )
+from repro_torch.audit.report import DisclosureReport, export_ledger_jsonl
 
 __all__ = [
     "AuditLedger",
     "NullLedger",
     "NULL_LEDGER",
     "GENESIS_SHA",
+    "DisclosureReport",
+    "export_ledger_jsonl",
     "record_sha",
     "canonical_json",
     "RECORD_KINDS",

@@ -1,13 +1,15 @@
-// Pixel reads shared by the detector kernels (textdetect.cu, phi_detect.cu).
+// Pixel reads shared by the detector kernels (textdetect.cu, phi_detect.cu),
+// and the grid limit jls.cu checks too.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
-// Launch limits of the detector kernels' one-block-per-tile grids: the y
-// and z grid dimensions, and the dynamic shared memory a block may take
-// without opting in. The C entry points return cudaErrorInvalidValue past
-// them, and the Python wrappers raise on that.
+// Launch limits of the detector kernels' one-block-per-tile grids (and of
+// jls.cu's one-row-per-block grid): the y and z grid dimensions, and the
+// dynamic shared memory a block may take without opting in. The C entry
+// points return cudaErrorInvalidValue past them, and the Python wrappers
+// raise on that.
 constexpr int kMaxGridYZ = 65535;
 constexpr size_t kMaxSharedBytes = 48 * 1024;
 

@@ -2,7 +2,8 @@
 
   scrub   - batched PHI rectangle blanking (``csrc/scrub.cu``)
   fused   - single-pass scrub + JPEG-Lossless residuals (``csrc/fused.cu``)
-  jls     - Golomb-Rice plan pre-pass: zigzag + row sums, code lengths +
+  jls     - JPEG-Lossless predictor residuals (``csrc/jls.cu``) and the
+            Golomb-Rice plan pre-pass: zigzag + row sums, code lengths +
             remainders (``csrc/entropy.cu``)
   textdetect - per-tile glyph-hit profiles and max runs of the burned-in-PHI
             detector (``csrc/textdetect.cu``)
@@ -20,7 +21,7 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {
     "fused": 0, "rice_prepass": 0, "rice_len_rem": 0, "scrub": 0, "textdetect": 0, "phi_detect": 0,
-    "bitmap": 0,
+    "bitmap": 0, "jls": 0,
 }
 
 

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("scrub", "fused", "entropy", "textdetect", "phi_detect", "bitmap")
+SOURCES = ("scrub", "fused", "entropy", "textdetect", "phi_detect", "bitmap", "jls")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

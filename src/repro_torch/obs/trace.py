@@ -16,7 +16,7 @@ Design constraints, in order:
    another parents to it automatically; roots name their trace explicitly.
 
 Spans never carry free-text values from data; attributes cross the
-export redactor before leaving the process.
+:mod:`repro_torch.obs.export` redactor before leaving the process.
 """
 from __future__ import annotations
 

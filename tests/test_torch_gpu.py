@@ -24,9 +24,12 @@ from repro_torch.kernels.bitmap.ops import (
     program_limits,
 )
 from repro_torch.kernels.bitmap.ref import combine_bitmaps_ref
-from repro_torch.kernels.fused.ops import fused_scrub_residuals
+from repro_torch.dicom import codec
+from repro_torch.kernels.fused.ops import fused_encode_batch, fused_scrub_residuals
 from repro_torch.kernels.fused.ref import fused_ref
 from repro_torch.kernels.jls import entropy
+from repro_torch.kernels.jls.ops import encode_batch, jls_residuals
+from repro_torch.kernels.jls.ref import residuals_ref
 from repro_torch.kernels.phi_detect import ops as phi_ops
 from repro_torch.kernels.phi_detect.ref import edge_density_ref
 from repro_torch.kernels.scrub.ops import pack_rects, scrub_images
@@ -78,6 +81,49 @@ def test_kernels_equal_plain_versions(rng, cuda, dtype):
     torch.cuda.synchronize()
     assert LAUNCHES["fused"] - before["fused"] == 7
     assert all(LAUNCHES[k] - before[k] == 1 for k in ("rice_prepass", "rice_len_rem", "scrub"))
+
+
+@pytest.mark.parametrize("stack", ["CT", "DX", "US", "small", "H=1", "W=1", "W=257"])
+@pytest.mark.parametrize("sv", list(range(1, 8)))
+def test_jls_kernel_equals_plain_version(rng, cuda, stack, sv):
+    """The CT chunk, the DX and US stacks of the main path, a ragged small
+    stack and the edges; uint16 full range (samples >= 32768)."""
+    shape, dtype = {
+        "CT": ((32, 512, 512), np.uint16), "DX": ((4, 2500, 2048), np.uint16),
+        "US": ((32, 540, 720), np.uint8), "small": ((2, 70, 90), np.uint16),
+        "H=1": ((3, 1, 300), np.uint8), "W=1": ((3, 70, 1), np.uint16),
+        "W=257": ((2, 9, 257), np.uint16),
+    }[stack]
+    images = torch.from_numpy(_full_range(rng, shape, dtype)).to(cuda)
+    before = LAUNCHES["jls"]
+    got = jls_residuals(images, sv=sv)
+    torch.cuda.synchronize()
+    assert LAUNCHES["jls"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, residuals_ref(images, sv, images.element_size() * 8))
+
+
+def test_jls_kernel_refuses_what_it_cannot_run(cuda):
+    images = torch.zeros((1, 4, 4), dtype=torch.uint16, device=cuda)
+    for kw in ({"sv": 0}, {"sv": 8}):
+        with pytest.raises(ValueError, match="selection value"):
+            jls_residuals(images, **kw)
+    with pytest.raises(ValueError, match="jls"):
+        jls_residuals(images, bits=31)
+    with pytest.raises(TypeError):
+        jls_residuals(images.to(torch.int32))
+
+
+def test_encodes_on_card_equal_host_codec(rng, cuda):
+    from repro_torch.core.scrub import numpy_blank
+
+    imgs = (rng.random((4, 96, 130)) * 4095).astype(np.uint16)
+    before = dict(LAUNCHES)
+    assert encode_batch(imgs) == [codec.encode(p, 1) for p in imgs]
+    rl = [[(5, 5, 40, 12)], [], [(0, 0, 130, 8), (100, 50, 60, 60)], [(3, 90, 7, 7)]]
+    assert fused_encode_batch(imgs, rl, sv=3) == [codec.encode(numpy_blank(p, r), 3)
+                                                  for p, r in zip(imgs, rl)]
+    assert LAUNCHES["jls"] == before["jls"] + 1 and LAUNCHES["fused"] == before["fused"] + 1
 
 
 @pytest.mark.parametrize("recompress", [True, False])

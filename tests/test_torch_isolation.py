@@ -33,7 +33,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"},
     )
     n_modules, bad = out.stdout.split("\n")[:2]
-    assert int(n_modules) >= 71
+    assert int(n_modules) >= 86
     assert bad == ""
 
 
@@ -50,7 +50,7 @@ def test_no_source_imports_jax_or_repro(path):
 
 def test_every_kernel_source_names_the_tpu_kernel_it_replaces():
     for cu in ("scrub.cu", "fused.cu", "entropy.cu", "textdetect.cu", "phi_detect.cu",
-               "bitmap.cu"):
+               "bitmap.cu", "jls.cu"):
         text = (PORT / "csrc" / cu).read_text()
         assert "Replaces" in text and "src/repro/kernels/" in text and "Bound" in text
 
@@ -87,5 +87,11 @@ def test_package_lists_its_modules():
                    "repro_torch.queueing.worker", "repro_torch.storage.object_store",
                    "repro_torch.audit.ledger", "repro_torch.utils.bytesize",
                    "repro_torch.utils.logging", "repro_torch.utils.timing",
-                   "repro_torch.utils.wal"):
+                   "repro_torch.utils.wal",
+                   "repro_torch.kernels.jls.ops", "repro_torch.kernels.jls.ref",
+                   "repro_torch.obs.export", "repro_torch.obs.slo", "repro_torch.obs.profile",
+                   "repro_torch.obs.health", "repro_torch.audit.report",
+                   "repro_torch.launch.deid_service", "repro_torch.sim.events",
+                   "repro_torch.ingest.checkpoint", "repro_torch.ingest.feed",
+                   "repro_torch.ingest.pooler"):
         assert needed in names
