@@ -17,10 +17,16 @@ Phases, in order; any failure raises and exits non-zero:
             (16, 64) tile and the float32 threshold straddle 2457.0001; for
             the jls kernel every selection value at the CT, DX and US stacks,
             a full-range uint16 stack and the edges H = 1, W = 1, W = 257,
-            and its refusals), and time kernel, plain version and (where one
-            exists) a single PyTorch call computing the same function, cold
-            L2, CUDA events, median of 21. Then the staged scrub -> jls pair
-            against the fused kernel at the CT chunk (equal; both timed).
+            and its refusals; for scrub and phi_detect the layouts their
+            16-byte chunks meet, from ``kernels/scrub/cases.py`` and
+            ``kernels/phi_detect/cases.py``, and scrub's grid refusal), and
+            time kernel, plain version and (where one exists) a single
+            PyTorch call computing the same function, cold L2, CUDA events,
+            median of 21; scrub and phi_detect also where the paths launch
+            them (the US chunk with recompression off; the audit's one-image
+            CT and DX launches) and at one block (the floor of a time taken
+            this way). Then the staged scrub -> jls pair against the fused
+            kernel at the CT chunk (equal; both timed).
 3. pipeline — paths, each driven with the launch counts set to 0 just
             before it and read just after:
             the cold de-identification of a 256-slice CT, a DX and a US study
@@ -72,7 +78,10 @@ Phases, in order; any failure raises and exits non-zero:
             its defaults on the card, plain and ``--chaos``, equal to the
             same runs with ``--device cpu`` (all but the counted plain card
             run in child processes, the four runs at once).
-4. result — one JSON line listing every kernel, then the device line.
+4. result — launches x (ms - bound) of every kernel (for scrub and
+            phi_detect at each shape they were launched at on the counted
+            paths, with the launches counted there by shape), one JSON line
+            listing every kernel, then the device line.
 
 Needs CUDA and the repository's ``src/`` beside this file; imports nothing of
 the JAX package.
@@ -87,6 +96,7 @@ import sys
 import tempfile
 import time
 import types
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -100,6 +110,7 @@ FP32_OPS_PER_S = 67e12     # float32 outside the tensor cores (data sheet)
 # of the float32 peak
 INT32_OPS_PER_S = FP32_OPS_PER_S / 2
 REPS = 21
+WARM = 200  # 256 MB rewrites before each timing, ~20 ms of the card's time
 ROUNDS = 3  # timed pipeline runs of each path per study
 CT_SLICES = 256
 MAIN_KERNELS = ("fused", "rice_prepass", "rice_len_rem", "scrub")
@@ -147,10 +158,14 @@ _FLUSH = None
 
 def time_ms(fn, reps: int = REPS) -> float:
     """Median device time of ``fn`` over ``reps`` launches, each with a cold
-    L2 (a 256 MB buffer is rewritten between launches, outside the window)."""
+    L2 (a 256 MB buffer is rewritten between launches, outside the window).
+    The buffer is first rewritten ``WARM`` times, so that no time is taken
+    while the card comes out of the idle spells of the host-side checks."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    for _ in range(WARM):
+        _FLUSH.zero_()
     fn()
     times = []
     for _ in range(reps):
@@ -169,8 +184,91 @@ def bound(nbytes: int, nops: int, ops_per_s: float = INT32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def scrub_ops(N: int, H: int, W: int, R: int) -> int:
+    """The scrub function's least operation count: for each row, 8 integer
+    operations that turn each rect into that row's x-interval, and one
+    select for each pixel."""
+    return N * H * R * 8 + N * H * W
+
+
+def launched_row(what, key, fn, nbytes, nops, rate=INT32_OPS_PER_S, library=None) -> dict:
+    """A kernel timed at a shape the paths launch it at. ``key`` is that
+    launch's shape, dtype and detail as its wrapper counts them in
+    ``LAUNCH_SHAPES``: main fills in the launches counted there."""
+    b_ms, b_by = bound(nbytes, nops, rate)
+    row = {"shape": what, "key": key, "ms": time_ms(fn), "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": time_ms(library) if library is not None else None}
+    row["pct_of_bound"] = 100 * b_ms / row["ms"]
+    log(f"  time at {what}: {json.dumps(row)}")
+    return row
+
+
+def check_scrub_edges() -> int:
+    """The scrub kernel against its plain version, exact, at every layout of
+    ``kernels/scrub/cases.py`` (where its 16-byte chunks meet the data),
+    and its grid refusal. Returns the case count."""
+    from repro_torch.kernels.scrub import cases
+    from repro_torch.kernels.scrub.ops import pack_rects, scrub_images
+    from repro_torch.kernels.scrub.ref import scrub_ref
+
+    rng = np.random.default_rng(15)
+    n = 0
+    for dtype in cases.DTYPES:
+        for N, H, W in cases.SHAPES:
+            base = torch.from_numpy(cases.planes(rng, dtype, (N, H, W))).cuda()
+            for off in cases.OFFSETS:
+                images = base[off:off + N]
+                view = cases.SAME_WIDTH_INT[images.element_size()]
+                for label, make in cases.RECT_SETS.items():
+                    rects = torch.from_numpy(pack_rects([make(H, W)] * N)).cuda()
+                    got, want = scrub_images(images, rects), scrub_ref(images, rects)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got.view(view), want.view(view)):
+                        raise AssertionError(f"scrub kernel != plain version on {np.dtype(dtype).name} "
+                                             f"{(N, H, W)} offset {off}, {label}")
+                    n += 1
+        log(f"  equal: scrub edge cases, {np.dtype(dtype).name}")
+    try:
+        scrub_images(torch.zeros((65536, 1, 1), dtype=torch.uint8, device="cuda"),
+                     torch.zeros((65536, 1, 4), dtype=torch.int32, device="cuda"))
+    except ValueError as e:
+        log(f"  refused: 65536 images (grid z limit 65535): {e}")
+    else:
+        raise AssertionError("scrub kernel took 65536 images")
+    return n
+
+
+def check_phi_edges() -> int:
+    """phi_detect against its plain version, exact, at every layout of
+    ``kernels/phi_detect/cases.py`` (where its 16-byte chunks and shuffles
+    meet the data). Returns the case count."""
+    from repro_torch.kernels.phi_detect import cases
+    from repro_torch.kernels.phi_detect.ops import edge_density
+    from repro_torch.kernels.phi_detect.ref import edge_density_ref
+
+    rng = np.random.default_rng(16)
+    n = 0
+    for dtype in cases.DTYPES:
+        for N, H, W in cases.SHAPES:
+            base = torch.from_numpy(cases.planes(rng, dtype, (N, H, W))).cuda()
+            for off in cases.OFFSETS:
+                images = base[off:off + N]
+                for tile in cases.TILES:
+                    for thresh in cases.threshes(dtype):
+                        got, want = (edge_density(images, thresh=thresh, tile=tile),
+                                     edge_density_ref(images, thresh, tile))
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"phi_detect kernel != plain version on {np.dtype(dtype).name} "
+                                f"{(N, H, W)} offset {off}, tile {tile}, thresh {thresh}")
+                        n += 1
+        log(f"  equal: phi_detect edge cases, {np.dtype(dtype).name}")
+    return n
+
+
 # ---------------------------------------------------------------- phase 2
-def check_kernels(us_shape) -> dict:
+def check_kernels(us_shape, us_rects) -> dict:
     from repro_torch.dicom import codec
     from repro_torch.kernels.fused.ops import fused_scrub_residuals
     from repro_torch.kernels.fused.ref import fused_ref
@@ -235,6 +333,7 @@ def check_kernels(us_shape) -> dict:
     esc[1, 40, 50] = 0
     case("k=0 and escapes (2,64,96) u16", esc, [[], []])
     log("kernels: every kernel equals its plain version on every case")
+    log(f"scrub: {check_scrub_edges()} edge cases equal to the plain version")
 
     # timing at the CT chunk shape of the main path (32,512,512) uint16, R=2
     images, rects, res, u, ks_t = ct_case
@@ -255,7 +354,7 @@ def check_kernels(us_shape) -> dict:
         "scrub": (lambda: scrub_images(images, rects),
                   lambda: scrub_ref(images, rects),
                   lambda: view16.masked_fill(mask, 0),
-                  npx * (2 + 2) + rects.numel() * 4, npx * (8 * R + 1)),
+                  npx * (2 + 2) + rects.numel() * 4, scrub_ops(N, H, W, R)),
     }
     rows = {}
     for name, (kern, plain, library, nbytes, nops) in timed.items():
@@ -270,13 +369,38 @@ def check_kernels(us_shape) -> dict:
             "shape": f"({N},{H},{W}) uint16, R={R}",
         }
         log(f"time {name}: {json.dumps(rows[name])}")
+    # the same bytes moved by a device-to-device copy: what scrub can reach
+    rows["scrub"]["copy_ms"] = time_ms(lambda: images.clone())
+
+    # scrub where the main path launches it: the US chunk with recompression
+    # off, its device's rects in the executor's power-of-two rect bucket
+    R_us = 1
+    while R_us < len(us_rects):
+        R_us *= 2
+    us = torch.from_numpy(full_range((32, uH, uW), np.uint8)).cuda()
+    us_r = torch.from_numpy(pack_rects([us_rects] * 32, R=R_us)).cuda()
+    us_mask = rect_mask(us_r, uH, uW)
+    compare("scrub", scrub_images(us, us_r), scrub_ref(us, us_r), "US launched shape")
+    npx = us.numel()
+    rows["scrub"]["launched"] = [launched_row(
+        f"(32,{uH},{uW}) uint8, R={R_us} ({len(us_rects)} rects)",
+        (tuple(us.shape), "uint8", R_us), lambda: scrub_images(us, us_r),
+        npx * (1 + 1) + us_r.numel() * 4, scrub_ops(32, uH, uW, R_us),
+        library=lambda: us.masked_fill(us_mask, 0))]
+    rows["scrub"]["launched"][0]["copy_ms"] = time_ms(lambda: us.clone())
+    # one block's launch: the floor of any time taken this way
+    one = torch.zeros((1, 1, 16), dtype=torch.uint16, device="cuda")
+    one_r = torch.zeros((1, 1, 4), dtype=torch.int32, device="cuda")
+    rows["scrub"]["floor_ms"] = time_ms(lambda: scrub_images(one, one_r))
+    log(f"  scrub one-block launch (1,1,16): {rows['scrub']['floor_ms']} ms")
     return rows
 
 
 def check_detector_kernels(us_shape) -> dict:
     """textdetect (all three outputs) and phi_detect against their plain
-    versions, exact, at the detector path's chunk shapes; timed at the CT
-    chunk."""
+    versions, exact, at the detector path's chunk shapes, and phi_detect at
+    its edge cases; timed at the CT chunk, and phi_detect at the audit's
+    one-image shapes too."""
     from repro_torch.kernels.phi_detect.ops import DEFAULT_THRESH_FRAC, edge_density
     from repro_torch.kernels.phi_detect.ref import edge_density_ref
     from repro_torch.kernels.textdetect.ops import BINARIZE_FRAC, tile_profiles
@@ -331,6 +455,7 @@ def check_detector_kernels(us_shape) -> dict:
     case(f"US (32,{uH},{uW}) u8 full range", banners((32, uH, uW), np.uint8, 255.0, True), 255.0)
     case("float32 (8,512,512)", banners((8, 512, 512), np.float32, 1.0), 1.0)
     log("detector kernels: each equals its plain version on every case")
+    log(f"phi_detect: {check_phi_edges()} edge cases equal to the plain version")
 
     # timing at the CT chunk of the main path, (32,512,512) uint16, (32,128)
     N, H, W = ct.shape
@@ -358,6 +483,22 @@ def check_detector_kernels(us_shape) -> dict:
             "shape": f"({N},{H},{W}) uint16, tile ({th},{tw})",
         }
         log(f"time {name}: {json.dumps(rows[name])}")
+
+    # phi_detect where the audit launches it: one image of the unknown CT
+    # and of the unknown DX a call
+    rows["phi_detect"]["launched"] = []
+    for shape in ((1, 320, 512), (1, 520, 648)):
+        img = torch.from_numpy(banners(shape, np.uint16, 4095.0)).cuda()
+        compare("phi_detect", edge_density(img, thresh=et), edge_density_ref(img, et, (th, tw)),
+                f"audit shape {shape}")
+        tiles1 = -(-shape[1] // th) * -(-shape[2] // tw)
+        rows["phi_detect"]["launched"].append(launched_row(
+            f"{shape} uint16, tile ({th},{tw})", (shape, "uint16", (th, tw)),
+            lambda img=img: edge_density(img, thresh=et),
+            img.numel() * 2 + tiles1 * 4, img.numel() * 4, FP32_OPS_PER_S))
+    one = torch.zeros((1, 1, 16), dtype=torch.uint16, device="cuda")
+    rows["phi_detect"]["floor_ms"] = time_ms(lambda: edge_density(one, thresh=et))
+    log(f"  phi_detect one-block launch (1,1,16): {rows['phi_detect']['floor_ms']} ms")
     return rows
 
 
@@ -722,23 +863,32 @@ def run_path(name, jobs, pseudo, kernels, during=None):
     """Drive ``jobs`` on the kernel path with every launch count set to 0
     just before and read just after (``during`` runs inside that window on
     the kernel runs), then on the host path, and hold the two equal.
-    Returns the launch counts and what ``during`` returned."""
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    Returns the launch counts, what ``during`` returned, and the launches
+    its wrappers counted by shape (``LAUNCH_SHAPES``) in each kernel-path
+    job, by the job's label, and in ``during``, as "during"."""
+    from repro_torch.kernels import LAUNCH_SHAPES, LAUNCHES, reset_launches
     from repro_torch.obs.trace import Tracer
 
     tracers = [Tracer(_WallClock()) for _ in jobs]
     reset_launches()
-    kernel_runs = [drive(make_pipeline("kernel", rc, mode, tr), s, pseudo)
-                   for (s, rc, mode), tr in zip(jobs, tracers)]
+    kernel_runs, by_job = [], {}
+    for job, tr in zip(jobs, tracers):
+        before = Counter(LAUNCH_SHAPES)
+        kernel_runs.append(drive(make_pipeline("kernel", job[1], job[2], tr), job[0], pseudo))
+        by_job[job_label(job)] = Counter(LAUNCH_SHAPES) - before
+    before = Counter(LAUNCH_SHAPES)
     extra = during(kernel_runs) if during is not None else None
+    by_job["during"] = Counter(LAUNCH_SHAPES) - before
     launches = dict(LAUNCHES)
     log(f"{name} path launches: {json.dumps(launches)}")
+    for label, shapes in by_job.items():
+        log(f"  {label}: launches by shape {json.dumps(sorted(map(list, shapes.items()), key=str))}")
     for k in kernels:
         assert launches[k] > 0, f"kernel {k} never launched on the {name} path"
     host_runs = [drive(make_pipeline("host", rc, mode), s, pseudo) for s, rc, mode in jobs]
     for job, k_run, h_run, tr in zip(jobs, kernel_runs, host_runs, tracers):
         check_equal(job, k_run, h_run, tr)
-    return launches, extra
+    return launches, extra, by_job
 
 
 def throughput(jobs, pseudo) -> None:
@@ -768,8 +918,10 @@ def audit(studies_and_runs, device) -> dict:
     }
 
 
-def run_detector_path(jobs, n_audited, pseudo) -> dict:
-    """The detector path; its first ``n_audited`` jobs are audited."""
+def run_detector_path(jobs, n_audited, pseudo):
+    """The detector path; its first ``n_audited`` jobs are audited. Returns
+    the launch counts and the launches by shape of each job and of the
+    audit ("during"), as :func:`run_path` does."""
     from repro_torch.kernels.phi_detect.ops import audit_dataset
 
     # warm-up outside the counted window: kernel loads
@@ -784,7 +936,7 @@ def run_detector_path(jobs, n_audited, pseudo) -> dict:
 
     # detection runs before the scrub, whose recompressing chunks go through
     # the cold path's kernels as well
-    launches, card_flags = run_path("detector", jobs, pseudo,
+    launches, card_flags, by_job = run_path("detector", jobs, pseudo,
                                     DETECTOR_KERNELS + ("fused", "rice_prepass", "rice_len_rem"),
                                     during=audit_on_card)
     cpu_flags = audit(audited["runs"], "cpu")
@@ -794,7 +946,7 @@ def run_detector_path(jobs, n_audited, pseudo) -> dict:
         assert any(raw), f"no raw instance flagged (negative control): {label}"
         log(f"audit {label}: raw flagged {sum(raw)}/{len(raw)}, delivered flagged "
             f"{sum(delivered)}/{len(delivered)}; equal to the CPU")
-    return launches
+    return launches, by_job
 
 
 def run_encode_path(studies) -> dict:
@@ -1450,7 +1602,7 @@ def main() -> None:
         log(f"study {s.accession}: {len(s.datasets)}x{s.datasets[0].pixels.shape} "
             f"{s.datasets[0].pixels.dtype} {s.device.id()}, {len(s.phi_rects)} with burned-in text")
 
-    rows = check_kernels(us.datasets[0].pixels.shape)
+    rows = check_kernels(us.datasets[0].pixels.shape, study_rects(us))
     rows.update(check_detector_kernels(us.datasets[0].pixels.shape))
     rows.update(check_bitmap_kernel())
     rows.update(check_jls_kernel(us.datasets[0].pixels.shape))
@@ -1460,7 +1612,7 @@ def main() -> None:
     # counted window: CUDA context, kernel loads
     main_jobs = [(ct, True, None), (dx, True, None), (us, True, None), (us, False, None)]
     drive(make_pipeline("kernel"), us, pseudo)
-    launches, _ = run_path("main", main_jobs, pseudo, MAIN_KERNELS)
+    launches, _, main_shapes = run_path("main", main_jobs, pseudo, MAIN_KERNELS)
     throughput(main_jobs, pseudo)
     split = chunk_split(ct)
     log(f"CT chunk (32,512,512) split: {json.dumps(split)}")
@@ -1469,8 +1621,8 @@ def main() -> None:
     # union on the known ones
     det_jobs = [(uct, True, "registry_first"), (udx, True, "registry_first"),
                 (ct, True, "union"), (dx, True, "union"), (us, True, "union")]
-    launches.update({k: v for k, v in run_detector_path(det_jobs, 2, pseudo).items()
-                     if k in DETECTOR_KERNELS})
+    det_launches, det_shapes = run_detector_path(det_jobs, 2, pseudo)
+    launches.update({k: v for k, v in det_launches.items() if k in DETECTOR_KERNELS})
     throughput([det_jobs[0], det_jobs[2]], pseudo)
     log(f"unknown-CT chunk (32,320,512) detection beside fused upload: "
         f"{json.dumps(detect_split(uct))}")
@@ -1490,6 +1642,32 @@ def main() -> None:
 
     # the operator launcher (g) at its defaults
     run_launcher_path()
+
+    # launches x (ms - bound): scrub and phi_detect at each shape their
+    # wrappers counted on the main and the detector path (every one of them
+    # timed in phase 2), the others at their timed shape
+    by_shape = {"scrub": (main_shapes, job_label((us, False, None))),
+                "phi_detect": (det_shapes, "during")}
+    for name, (by_job, where) in by_shape.items():
+        counted = {label: Counter({k[1:]: v for k, v in shapes.items() if k[0] == name})
+                   for label, shapes in by_job.items()}
+        assert set(k for k, c in counted.items() if c) == {where}, \
+            f"{name} launched outside {where}: {json.dumps({k: sum(c.values()) for k, c in counted.items()})}"
+        timed = {at["key"]: at for at in rows[name]["launched"]}
+        assert set(counted[where]) == set(timed), \
+            f"{name}: launched at {sorted(counted[where])}, timed at {sorted(timed)}"
+        for key, at in timed.items():
+            at["launches"] = counted[where][key]
+            at["gap_ms"] = at["launches"] * (at["ms"] - at["bound_ms"])
+        assert sum(at["launches"] for at in timed.values()) == launches[name]
+    for name, row in rows.items():
+        if row.get("launched"):
+            row["gap_ms"], row["gap_at"] = sum(at["gap_ms"] for at in row["launched"]), "launched shapes"
+        else:
+            row["gap_ms"], row["gap_at"] = launches[name] * (row["ms"] - row["bound_ms"]), "timed shape"
+    log("launches x (ms - bound): " + json.dumps(
+        {name: round(row["gap_ms"], 6) for name, row in sorted(rows.items(),
+                                                                key=lambda kv: -kv[1]["gap_ms"])}))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -16,13 +16,30 @@
 // 2 + 4 / 4096 = 2.001 B per pixel. The subtract, abs and compare are far
 // below the card's float32 rate.
 //
-// Design: one block per (tile column, tile row, image), tw threads. Thread
-// c walks the th rows of its column and compares its pixel with its right
-// neighbour (the neighbour's load is the next thread's, served by L1), as
-// float subtraction and fabsf. The integer count is exact; a warp sum and a
-// shared atomicAdd reduce it over the block, and thread 0 divides with
-// __fdiv_rn, one IEEE float32 division as in the reference (whatever the
-// compiler's division flags).
+// Design: one block per (tile column, tile row, image). A tile row is cut
+// into C = ceil(tw / V) chunks of V = 16 / itemsize pixels (8 uint16), and
+// the th x C chunks of the tile are spread over the block, kChunks chunks a
+// thread a pass, each thread issuing all of its 16-byte loads before it
+// counts (the (32, 128) uint16 tile is 512 chunks: 256 threads, one pass,
+// every load of the tile in flight at once, which is what the audit's
+// one-image launches, 40 tiles on 132 SMs, need, rather than 32 rows walked
+// one after another). Chunk s of a pass is (row s / C, chunk s % C), and
+// the chunks of one k sit in consecutive lanes, so a chunk's right
+// neighbour, the first pixel of chunk s + 1,
+// comes from __shfl_down_sync instead of a second global load; lane 31,
+// whose next chunk is in another warp, loads that one pixel, and the last
+// chunk of a tile row has no pair past it (c + 1 = tw). A chunk that lies
+// inside the frame, is whole (not the short last chunk of a tile width that
+// is no multiple of V) and sits on a 16-byte boundary is one uint4 load;
+// any other (a ragged edge, a row that is no 16-byte multiple, a misaligned
+// base) reads its pixels one by one in the same pass, zeros past the frame.
+// The integer count is exact: a warp sum, one shared slot per warp, and
+// thread 0 divides with __fdiv_rn, one IEEE float32 division as in the
+// reference (whatever the compiler's division flags; never a reciprocal
+// product).
+//
+// Registers (nvcc -Xptxas -v, sm_90a, logged by chip_smoke.py): 35-48 a
+// thread by pixel type (40 for uint16), no stack frame, no spills.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -30,47 +47,116 @@
 
 namespace {
 
+constexpr int kThreads = 256;  // at most, a block
+constexpr int kChunks = 2;     // 16-byte chunks a thread a pass: loads in flight
+constexpr int kMaxTileWidth = 1024;
+
+// Pixel i of a 16-byte chunk of T pixels as float32, by value (the words
+// are picked by constant indices once the caller's loop is unrolled).
+__device__ __forceinline__ float as_f32(unsigned bits, uint8_t) { return static_cast<float>(bits & 0xffu); }
+__device__ __forceinline__ float as_f32(unsigned bits, uint16_t) { return static_cast<float>(bits & 0xffffu); }
+__device__ __forceinline__ float as_f32(unsigned bits, int16_t) {
+  return static_cast<float>(static_cast<int16_t>(bits & 0xffffu));
+}
+__device__ __forceinline__ float as_f32(unsigned bits, int32_t) { return static_cast<float>(static_cast<int>(bits)); }
+__device__ __forceinline__ float as_f32(unsigned bits, float) { return __uint_as_float(bits); }
+
 template <typename T>
-__global__ void phi_detect_kernel(const T* __restrict__ in, float* __restrict__ out, int H, int W,
-                                  int th, int tw, float thresh) {
-  __shared__ int tile_hits;
-  const int c = threadIdx.x;
+__device__ __forceinline__ float chunk_pixel(const uint4& q, int i) {
+  const int k = i * static_cast<int>(sizeof(T)) / 4;
+  const unsigned word = k == 0 ? q.x : k == 1 ? q.y : k == 2 ? q.z : q.w;
+  return as_f32(word >> (8 * (i * sizeof(T) % 4)), T{});
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+phi_detect_kernel(const T* __restrict__ in, float* __restrict__ out, int H, int W, int th,
+                  int tw, float thresh) {
+  constexpr int V = 16 / sizeof(T);  // pixels per chunk
+  __shared__ int warp_hits[kThreads / 32];
   const int tx = blockIdx.x, ty = blockIdx.y, n = blockIdx.z;
-  const size_t tile = (static_cast<size_t>(n) * gridDim.y + ty) * gridDim.x + tx;
+  const int lane = threadIdx.x & 31;
   const T* plane = in + static_cast<size_t>(n) * H * W;
-  if (c == 0) tile_hits = 0;
-  __syncthreads();
+  const int C = (tw + V - 1) / V;
+  const int slots = th * C;
 
   int count = 0;
-  if (c + 1 < tw) {
-    const int x = tx * tw + c;
-    for (int r = 0; r < th; ++r) {
-      const int y = ty * th + r;
-      const float a = pixel_f32(plane, H, W, y, x);
-      const float b = pixel_f32(plane, H, W, y, x + 1);
-      count += fabsf(b - a) >= thresh ? 1 : 0;
+  for (int base = 0; base < slots; base += kChunks * blockDim.x) {
+    // issue every 16-byte load of the pass first
+    uint4 raw[kChunks];
+    bool whole[kChunks];
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int s = base + k * blockDim.x + threadIdx.x;
+      const int r = s / C, j = s - r * C;
+      const int y = ty * th + r, x0 = tx * tw + j * V;
+      const T* p = plane + static_cast<size_t>(y) * W + x0;
+      whole[k] = s < slots && j * V + V <= tw && y < H && x0 + V <= W &&
+                 (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+      if (whole[k]) raw[k] = __ldg(reinterpret_cast<const uint4*>(p));
+    }
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int s = base + k * blockDim.x + threadIdx.x;
+      const int r = s / C, j = s - r * C;
+      const int y = ty * th + r, x0 = tx * tw + j * V;
+      const int m = min(V, tw - j * V);  // pixels of the tile in this chunk
+      float px[V];
+      if (whole[k]) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) px[i] = chunk_pixel<T>(raw[k], i);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          px[i] = (s < slots && i < m) ? pixel_f32(plane, H, W, y, x0 + i) : 0.0f;
+      }
+      // every lane shuffles; the next lane holds chunk s + 1
+      const float next = __shfl_down_sync(0xffffffffu, px[0], 1);
+      if (s < slots) {
+#pragma unroll
+        for (int i = 0; i + 1 < V; ++i) count += (i + 1 < m && fabsf(px[i + 1] - px[i]) >= thresh);
+        if (j + 1 < C) {
+          const float b = lane == 31 ? pixel_f32(plane, H, W, y, x0 + V) : next;
+          count += fabsf(b - px[V - 1]) >= thresh;
+        }
+      }
     }
   }
-  count = __reduce_add_sync(warp_lanes(blockDim.x), count);
-  if ((c & 31) == 0 && count > 0) atomicAdd(&tile_hits, count);
+  count = __reduce_add_sync(0xffffffffu, count);
+  if (lane == 0) warp_hits[threadIdx.x >> 5] = count;
   __syncthreads();
-  if (c == 0) out[tile] = __fdiv_rn(static_cast<float>(tile_hits), static_cast<float>(th * tw));
+  if (threadIdx.x < 32) {
+    const int warps = blockDim.x >> 5;
+    int hits = lane < warps ? warp_hits[lane] : 0;
+    hits = __reduce_add_sync(0xffffffffu, hits);
+    if (lane == 0) {
+      const size_t tile = (static_cast<size_t>(n) * gridDim.y + ty) * gridDim.x + tx;
+      out[tile] = __fdiv_rn(static_cast<float>(hits), static_cast<float>(th * tw));
+    }
+  }
 }
 
 }  // namespace
 
+// Refuses (cudaErrorInvalidValue) a tile wider than kMaxTileWidth, a tile
+// dimension below 1, a tile area past int, and a grid past kMaxGridYZ tile
+// rows or images.
 extern "C" int phi_detect_launch(const void* in, void* out, int N, int H, int W, int th, int tw,
                                  int pixel_code, float thresh, void* stream) {
   if (N == 0 || H == 0 || W == 0) return 0;
-  if (th < 1 || tw < 1 || tw > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (th < 1 || tw < 1 || tw > kMaxTileWidth || static_cast<int64_t>(th) * tw > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int Ht = (H + th - 1) / th, Wt = (W + tw - 1) / tw;
   if (Ht > kMaxGridYZ || N > kMaxGridYZ) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(Wt, Ht, N);
   return static_cast<int>(with_pixel_type(pixel_code, [&](auto tag) {
     using T = decltype(tag);
-    phi_detect_kernel<T><<<grid, tw, 0, s>>>(static_cast<const T*>(in), static_cast<float*>(out),
-                                             H, W, th, tw, thresh);
+    constexpr int V = 16 / sizeof(T);
+    const int64_t per_thread = (static_cast<int64_t>(th) * ((tw + V - 1) / V) + kChunks - 1) / kChunks;
+    const int threads = static_cast<int>(per_thread >= kThreads ? kThreads : (per_thread + 31) / 32 * 32);
+    phi_detect_kernel<T><<<grid, threads, 0, s>>>(static_cast<const T*>(in),
+                                                   static_cast<float*>(out), H, W, th, tw, thresh);
     return cudaGetLastError();
   }));
 }

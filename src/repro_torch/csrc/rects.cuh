@@ -21,3 +21,22 @@ __device__ __forceinline__ bool covered(const int4* __restrict__ rects, int R, i
   }
   return hit;
 }
+
+// Bit j (0 <= j < V) set when pixel (x + j, y) lies inside one of the R
+// rects: each rect that spans row y, as an x-interval cut to the V pixels.
+// rects may live in shared memory. Same coverage as covered().
+template <int V>
+__device__ __forceinline__ unsigned cover_bits(const int4* rects, int R, int x, int y) {
+  unsigned bits = 0;
+  for (int r = 0; r < R; ++r) {
+    const int4 q = rects[r];
+    if ((q.z > 0) & (q.w > 0) & (y >= q.y) & (y < wrap_add(q.y, q.w))) {
+      // 64-bit: q.x - x must not wrap
+      const long long lo = max(0LL, static_cast<long long>(q.x) - x);
+      const long long hi = min(static_cast<long long>(V),
+                               static_cast<long long>(wrap_add(q.x, q.z)) - x);
+      if (lo < hi) bits |= ((1u << hi) - 1u) ^ ((1u << lo) - 1u);
+    }
+  }
+  return bits;
+}

@@ -15,9 +15,11 @@
 A public op takes torch tensors: on a CUDA tensor it launches its kernel
 (or raises), on a CPU tensor it runs the plain PyTorch version. Each launch
 adds one to its entry of :data:`LAUNCHES`, so a run can show which kernels
-the main path went through.
+the main path went through, and to :data:`LAUNCH_SHAPES` under its kernel,
+shape, dtype and launch detail, so it can show at which shapes.
 """
-from typing import Dict
+from collections import Counter
+from typing import Dict, Hashable
 
 LAUNCHES: Dict[str, int] = {
     "fused": 0, "rice_prepass": 0, "rice_len_rem": 0, "scrub": 0, "textdetect": 0, "phi_detect": 0,
@@ -25,9 +27,22 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+# (kernel, shape, dtype, detail) -> launches; detail is what else sets the
+# launch's work (rects per image, tile, selection value), or None
+LAUNCH_SHAPES: Counter = Counter()
+
+
+def count_launch(name: str, t, detail: Hashable = None) -> None:
+    """Count one launch of kernel ``name`` on tensor ``t``: called by its
+    wrapper where it launches the kernel, and nowhere else."""
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, tuple(t.shape), str(t.dtype).removeprefix("torch."), detail)] += 1
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_SHAPES.clear()
 
 
-__all__ = ["LAUNCHES", "reset_launches"]
+__all__ = ["LAUNCHES", "LAUNCH_SHAPES", "count_launch", "reset_launches"]

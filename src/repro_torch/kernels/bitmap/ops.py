@@ -18,7 +18,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import count_launch
 from repro_torch.kernels._launch import check_cuda, raise_on_error, require_tensor, stream_of
 from repro_torch.kernels.bitmap.ref import Program, run_program, unpack_mask_np
 from repro_torch.kernels.build import bind, library
@@ -90,7 +90,7 @@ def combine_bitmaps_launch(leaves: torch.Tensor, program: Program) -> tuple[torc
     rc = fn(leaves.data_ptr(), out.data_ptr(), count.data_ptr(), ops, args, K, W, n,
             stream_of(leaves))
     raise_on_error("bitmap", rc, f"(K {K}, W {W}, {n} ops)")
-    LAUNCHES["bitmap"] += 1
+    count_launch("bitmap", leaves, n)
     return out, count
 
 

@@ -6,9 +6,12 @@ is built at first use, or all at once with :func:`build_all` (one ``nvcc``
 per source, started together), into ``src/repro_torch/_build/`` under a name
 keyed by the hash of its sources and flags, so an edited source rebuilds and
 an unchanged one is reused. Nothing here runs at import time.
+:func:`sources_from` points the wrappers at another tree's ``csrc/`` for
+the length of a block, to time two versions of a kernel in turns.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,8 +31,9 @@ FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_csrc = CSRC  # the sources the wrappers build and launch
 
 
 def nvcc() -> str:
@@ -42,9 +46,26 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the toolkit is installed")
 
 
+@contextlib.contextmanager
+def sources_from(csrc: Path):
+    """Inside the block the wrappers build and launch the kernels of
+    another tree's ``csrc/`` (an earlier commit's, unpacked with ``git
+    archive``) through their own code, so two versions of a kernel can be
+    timed in turns in one process. Their C entry points must take the same
+    arguments as this tree's."""
+    global _csrc
+    with _lock:
+        prev, _csrc = _csrc, Path(csrc).resolve()
+    try:
+        yield
+    finally:
+        with _lock:
+            _csrc = prev
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for src in [_csrc / f"{name}.cu", *sorted(_csrc.glob("*.cuh"))]:
         h.update(src.name.encode() + src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -63,7 +84,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(_csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
     report = {name: {"seconds": 0.0, "log": ""} for name in names}
@@ -83,12 +104,13 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     with _lock:
-        lib = _libs.get(name)
+        key = (_csrc, name)
+        lib = _libs.get(key)
         if lib is None:
             out = _target(name)
             if not out.exists():
                 build_all([name])
-            lib = _libs[name] = ctypes.CDLL(str(out))
+            lib = _libs[key] = ctypes.CDLL(str(out))
         return lib
 
 

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import count_launch
 from repro_torch.kernels._launch import check_cuda, raise_on_error, stream_of
 from repro_torch.kernels.build import bind
 from repro_torch.kernels.fused.ref import fused_ref
@@ -53,7 +53,7 @@ def fused_scrub_residuals(
     rc = fn(images.data_ptr(), rects.data_ptr(), out.data_ptr(), N, H, W, rects.shape[1],
             images.element_size(), sv, bits, stream_of(images))
     raise_on_error("fused", rc)
-    LAUNCHES["fused"] += 1
+    count_launch("fused", images, rects.shape[1])
     return out
 
 

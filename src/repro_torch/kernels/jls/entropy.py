@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.dicom.codec import _QMAX
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import count_launch
 from repro_torch.kernels._launch import check_cuda, raise_on_error, stream_of
 from repro_torch.kernels.build import bind
 
@@ -64,7 +64,7 @@ def rice_prepass(res: torch.Tensor, *, bh: int = 64) -> tuple[torch.Tensor, torc
     fn = bind("entropy", "rice_prepass_launch", 3, 3)
     rc = fn(res.data_ptr(), u.data_ptr(), rs.data_ptr(), N, H, W, stream_of(res))
     raise_on_error("rice_prepass", rc)
-    LAUNCHES["rice_prepass"] += 1
+    count_launch("rice_prepass", res)
     return u, rs
 
 
@@ -93,5 +93,5 @@ def rice_len_rem(u: torch.Tensor, ks, *, bh: int = 64) -> tuple[torch.Tensor, to
     rc = fn(u.data_ptr(), ks.data_ptr(), lens.data_ptr(), rem.data_ptr(), N, H, W, _QMAX,
             stream_of(u))
     raise_on_error("rice_len_rem", rc)
-    LAUNCHES["rice_len_rem"] += 1
+    count_launch("rice_len_rem", u)
     return lens, rem

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dicom import codec
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import count_launch
 from repro_torch.kernels._launch import check_cuda, raise_on_error, require_tensor, stream_of
 from repro_torch.kernels.build import bind
 from repro_torch.kernels.jls.ref import residuals_ref
@@ -47,7 +47,7 @@ def jls_residuals(
     rc = fn(images.data_ptr(), out.data_ptr(), N, H, W, images.element_size(), sv, bits,
             stream_of(images))
     raise_on_error("jls", rc, f"(shape {(N, H, W)}, sv {sv}, bits {bits})")
-    LAUNCHES["jls"] += 1
+    count_launch("jls", images, sv)
     return out
 
 

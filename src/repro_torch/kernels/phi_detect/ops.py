@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import count_launch
 from repro_torch.kernels._launch import (
     PIXEL_CODES,
     check_cuda,
@@ -79,7 +79,7 @@ def edge_density(
     scale; pass ``max_value`` (BitsStored-style) when the stored range is
     narrower, e.g. 4095 for 12-bit data held in uint16. The CUDA kernel
     reads pixels past the frame as zeros, the padding the plain version
-    adds; a tile that does not fit one block (``tw > 1024``) raises.
+    adds; a tile wider than 1024 pixels raises ``ValueError``.
     """
     images = require_tensor("edge_density", images)
     if thresh is None:
@@ -95,7 +95,7 @@ def edge_density(
     rc = fn(images.data_ptr(), out.data_ptr(), N, H, W, th, tw, PIXEL_CODES[images.dtype],
             float(thresh), stream_of(images))
     raise_on_error("phi_detect", rc, f"(tile {(th, tw)}, grid {(Wt, Ht, N)})")
-    LAUNCHES["phi_detect"] += 1
+    count_launch("phi_detect", images, (th, tw))
     return out
 
 

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import count_launch
 from repro_torch.kernels._launch import check_cuda, raise_on_error, stream_of
 from repro_torch.kernels.build import bind
 from repro_torch.kernels.scrub.ref import scrub_ref
@@ -30,7 +30,9 @@ def scrub_images(
     images: (N, H, W); rects: (N, R, 4) int32 (x, y, w, h); padding rects have
     w<=0/h<=0. Returns a new tensor of the same shape/dtype. ``block`` is the
     TPU tile shape of the JAX signature; the CUDA kernel masks the ragged
-    edge itself and ignores it.
+    edge itself and ignores it. The kernel refuses, and this raises
+    ``ValueError`` on, more than 65535 images, a plane of 2^31 pixels or
+    more and more rects than a block's shared memory holds (3072).
     """
     if images.device.type == "cpu":
         return scrub_ref(images, rects.to(torch.int32))
@@ -41,13 +43,28 @@ def scrub_images(
         raise ValueError(f"rects shape {tuple(rects.shape)} does not fit images {tuple(images.shape)}")
     if images.element_size() not in (1, 2, 4, 8):
         raise TypeError(f"scrub_images: unsupported dtype {images.dtype}")
-    out = torch.empty_like(images)
+    out = _empty_at_offset_of(images)
     fn = bind("scrub", "scrub_launch", 3, 5)
     rc = fn(images.data_ptr(), out.data_ptr(), rects.data_ptr(), N, H, W, rects.shape[1],
             images.element_size(), stream_of(images))
-    raise_on_error("scrub", rc)
-    LAUNCHES["scrub"] += 1
+    raise_on_error("scrub", rc, f"(images {tuple(images.shape)}, {rects.shape[1]} rects)")
+    count_launch("scrub", images, rects.shape[1])
     return out
+
+
+def _empty_at_offset_of(images: torch.Tensor) -> torch.Tensor:
+    """An uninitialised tensor like ``images`` whose data starts at the same
+    offset from a 16-byte boundary: the kernel moves 16-byte chunks on both
+    sides. A view such as ``images[1:]`` may start anywhere; a fresh
+    allocation starts on a boundary, so it is cut from a buffer 16 bytes
+    longer where the offsets differ."""
+    offset = images.data_ptr() % 16
+    if offset == 0:
+        return torch.empty_like(images)
+    nbytes = images.numel() * images.element_size()
+    buf = torch.empty(nbytes + 16, dtype=torch.uint8, device=images.device)
+    start = (offset - buf.data_ptr()) % 16
+    return buf[start:start + nbytes].view(images.dtype).view(images.shape)
 
 
 def pack_rects(rect_lists: Sequence[Sequence[tuple]], R: int | None = None) -> np.ndarray:

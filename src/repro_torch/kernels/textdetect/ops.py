@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.detect.policy import DEFAULT_BINARIZE_FRAC as BINARIZE_FRAC
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import count_launch
 from repro_torch.kernels._launch import (
     PIXEL_CODES,
     check_cuda,
@@ -68,7 +68,7 @@ def tile_profiles(
     rc = fn(images.data_ptr(), rows.data_ptr(), cols.data_ptr(), runs.data_ptr(),
             N, H, W, th, tw, PIXEL_CODES[images.dtype], float(thresh), stream_of(images))
     raise_on_error("textdetect", rc, f"(tile {(th, tw)}, grid {(Wt, Ht, N)})")
-    LAUNCHES["textdetect"] += 1
+    count_launch("textdetect", images, (th, tw))
     return rows, cols, runs
 
 

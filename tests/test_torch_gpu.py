@@ -30,8 +30,10 @@ from repro_torch.kernels.fused.ref import fused_ref
 from repro_torch.kernels.jls import entropy
 from repro_torch.kernels.jls.ops import encode_batch, jls_residuals
 from repro_torch.kernels.jls.ref import residuals_ref
+from repro_torch.kernels.phi_detect import cases as phi_cases
 from repro_torch.kernels.phi_detect import ops as phi_ops
 from repro_torch.kernels.phi_detect.ref import edge_density_ref
+from repro_torch.kernels.scrub import cases as scrub_cases
 from repro_torch.kernels.scrub.ops import pack_rects, scrub_images
 from repro_torch.kernels.scrub.ref import scrub_ref
 from repro_torch.kernels.textdetect.ops import tile_profiles
@@ -81,6 +83,57 @@ def test_kernels_equal_plain_versions(rng, cuda, dtype):
     torch.cuda.synchronize()
     assert LAUNCHES["fused"] - before["fused"] == 7
     assert all(LAUNCHES[k] - before[k] == 1 for k in ("rice_prepass", "rice_len_rem", "scrub"))
+
+
+@pytest.mark.parametrize("dtype", scrub_cases.DTYPES)
+@pytest.mark.parametrize("shape", scrub_cases.SHAPES)
+@pytest.mark.parametrize("offset", scrub_cases.OFFSETS)
+def test_scrub_kernel_equals_plain_version_at_chunk_edges(rng, cuda, dtype, shape, offset):
+    """The kernel's 16-byte chunks against every layout they meet
+    (``kernels/scrub/cases.py``): a base off a 16-byte boundary (the scalar
+    head), rows that are no 16-byte multiple (chunks across a row end),
+    planes that are no chunk multiple (the scalar tail) or smaller than one
+    chunk, rect edges at vector offsets; all four item sizes; exact."""
+    N, H, W = shape
+    images = torch.from_numpy(scrub_cases.planes(rng, dtype, shape)).to(cuda)[offset:offset + N]
+    view = scrub_cases.SAME_WIDTH_INT[images.element_size()]
+    before = LAUNCHES["scrub"]
+    for make in scrub_cases.RECT_SETS.values():
+        rects = torch.from_numpy(pack_rects([make(H, W)] * N)).to(cuda)
+        got = scrub_images(images, rects)
+        assert got.shape == images.shape and got.dtype == images.dtype
+        assert torch.equal(got.view(view), scrub_ref(images, rects).view(view))
+    torch.cuda.synchronize()
+    assert LAUNCHES["scrub"] - before == len(scrub_cases.RECT_SETS)
+
+
+def test_scrub_kernel_refuses_grid_past_limit(cuda):
+    """Images go to grid z: 65536 of them is past the limit, refused in C."""
+    images = torch.zeros((65536, 1, 1), dtype=torch.uint8, device=cuda)
+    rects = torch.zeros((65536, 1, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="refused"):
+        scrub_images(images, rects)
+    assert torch.equal(scrub_images(images[:65535], rects[:65535]), images[:65535])
+
+
+@pytest.mark.parametrize("dtype", phi_cases.DTYPES)
+@pytest.mark.parametrize("shape", phi_cases.SHAPES)
+@pytest.mark.parametrize("offset", phi_cases.OFFSETS)
+def test_phi_detect_kernel_equals_plain_version_at_chunk_edges(rng, cuda, dtype, shape, offset):
+    """The kernel's 16-byte chunks and right-neighbour shuffles against the
+    layouts of ``kernels/phi_detect/cases.py``: the audit's one-image
+    shapes and a 32-image batch, ragged right and bottom edges, a base off
+    a 16-byte boundary, tiles that are no vector multiple, every pixel
+    type, the float32 threshold straddle and thresh 0; exact."""
+    N, H, W = shape
+    images = torch.from_numpy(phi_cases.planes(rng, dtype, shape)).to(cuda)[offset:offset + N]
+    before = LAUNCHES["phi_detect"]
+    for tile in phi_cases.TILES:
+        for thresh in phi_cases.threshes(dtype):
+            got = phi_ops.edge_density(images, thresh=thresh, tile=tile)
+            assert torch.equal(got, edge_density_ref(images, thresh, tile)), (tile, thresh)
+    torch.cuda.synchronize()
+    assert LAUNCHES["phi_detect"] - before == len(phi_cases.TILES) * len(phi_cases.threshes(dtype))
 
 
 @pytest.mark.parametrize("stack", ["CT", "DX", "US", "small", "H=1", "W=1", "W=257"])

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
 neither JAX nor any module of the JAX package ``repro``, no source of the
-port or ``chip_smoke.py`` imports them, and the default device is the card
+port, ``chip_smoke.py`` or ``kernel_ab.py`` imports them, and the default device is the card
 (an error without CUDA), never a silent CPU fallback."""
 import pkgutil
 import re
@@ -42,7 +42,8 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)
 
 
 @pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]))
+    str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+                                      ROOT / "kernel_ab.py"]))
 def test_no_source_imports_jax_or_repro(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.findall(text), path

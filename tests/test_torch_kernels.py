@@ -26,7 +26,8 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.fused.ops import fused_scrub_residuals
 from repro_torch.kernels.fused.ref import fused_ref
 from repro_torch.kernels.jls import entropy
-from repro_torch.kernels.scrub.ops import make_blank_fn, pack_rects, scrub_images
+from repro_torch.kernels.scrub import cases as scrub_cases
+from repro_torch.kernels.scrub.ops import _empty_at_offset_of, make_blank_fn, pack_rects, scrub_images
 from repro_torch.kernels.scrub.ref import scrub_ref
 
 
@@ -150,6 +151,42 @@ class TestScrub:
         np.testing.assert_array_equal(got, scrub_ref(_t(imgs), _t(rects)).numpy())
         for i in range(2):
             np.testing.assert_array_equal(got[i], numpy_blank(imgs[i], rl[i]))
+
+    # the JAX package without x64 has no 8-byte pixel type
+    @pytest.mark.parametrize("dtype", [d for d in scrub_cases.DTYPES if np.dtype(d).itemsize < 8])
+    @pytest.mark.parametrize("shape", scrub_cases.SHAPES)
+    @pytest.mark.parametrize("offset", scrub_cases.OFFSETS)
+    def test_misaligned_view_and_odd_rows_match_pallas(self, rng, dtype, shape, offset):
+        """The layouts the CUDA kernel's 16-byte chunks meet
+        (``kernels/scrub/cases.py``), on the plain version: a view starting
+        off a 16-byte boundary, rows that are no 16-byte multiple, a plane
+        smaller than a chunk; image i takes the i-th rect set in turn (rect
+        x-edges at vector offsets, negative and wrapping rects, a padding
+        rect, the full frame). Exact against the Pallas kernel, its oracle
+        and numpy_blank."""
+        N, H, W = shape
+        base = scrub_cases.planes(rng, dtype, shape)
+        imgs = base[offset:offset + N]
+        sets = list(scrub_cases.RECT_SETS.values())
+        rl = [sets[i % len(sets)](H, W) for i in range(N)]
+        rects = pack_rects(rl)
+        got = scrub_images(torch.from_numpy(base)[offset:offset + N], _t(rects)).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jax_scrub(imgs, rects)))
+        np.testing.assert_array_equal(
+            got, np.asarray(jax_scrub_ref(jnp.asarray(imgs), jnp.asarray(rects))))
+        for i in range(N):
+            np.testing.assert_array_equal(got[i], numpy_blank(imgs[i], rl[i]))
+
+    @pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float32, torch.int64])
+    def test_output_starts_at_the_inputs_offset_from_16_bytes(self, dtype):
+        """The CUDA kernel moves 16-byte chunks of input and output alike:
+        the wrapper's output starts at the input's offset from a 16-byte
+        boundary, for a view that starts anywhere."""
+        base = torch.zeros((5, 3, 7), dtype=dtype)
+        for view in (base, base[1:], base[2:], base[3:4]):
+            out = _empty_at_offset_of(view)
+            assert out.data_ptr() % 16 == view.data_ptr() % 16
+            assert out.shape == view.shape and out.dtype == dtype and out.is_contiguous()
 
     def test_full_range_uint16_kept(self):
         img = np.full((1, 8, 8), 65535, np.uint16)

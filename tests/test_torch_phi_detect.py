@@ -24,6 +24,7 @@ from repro_torch.carry import study_from_plain, study_to_plain
 from repro_torch.core.scrub import numpy_blank
 from repro_torch.dicom.dataset import DicomDataset
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.phi_detect import cases as phi_cases
 from repro_torch.kernels.phi_detect import ops
 from repro_torch.kernels.phi_detect.ref import edge_density_ref, phi_flags_ref
 from repro_torch.kernels.textdetect.ref import pad_to_tiles_np
@@ -70,6 +71,30 @@ class TestEdgeDensity:
             # quotient that the JAX oracle and the port compute
             np.testing.assert_array_equal(want_k, counts * (np.float32(1) / area))
             np.testing.assert_array_max_ulp(got, want_k, maxulp=1)
+
+    @pytest.mark.parametrize("dtype", phi_cases.DTYPES)
+    @pytest.mark.parametrize("shape", phi_cases.SHAPES)
+    @pytest.mark.parametrize("offset", phi_cases.OFFSETS)
+    def test_misaligned_view_and_ragged_edges_equal_jax(self, rng, dtype, shape, offset):
+        """The layouts the CUDA kernel's 16-byte chunks meet
+        (``kernels/phi_detect/cases.py``), on the plain version: a view
+        starting off a 16-byte boundary, ragged right and bottom edges,
+        tile widths that are no vector multiple, every pixel type (negative
+        values in the signed ones), the float32 threshold straddle and
+        thresh 0. Exact against the JAX oracle, and against the Pallas
+        kernel at the (32, 128) tile."""
+        N, H, W = shape
+        base = phi_cases.planes(rng, dtype, shape)
+        imgs, view = base[offset:offset + N], torch.from_numpy(base)[offset:offset + N]
+        for tile in phi_cases.TILES:
+            for thresh in phi_cases.threshes(dtype):
+                got = ops.edge_density(view, thresh=thresh, tile=tile).numpy()
+                want = np.asarray(jax_edge_density_ref(jnp.asarray(pad_to_tiles_np(imgs, tile)),
+                                                       thresh, tile))
+                np.testing.assert_array_equal(got, want)
+        got = ops.edge_density(view, thresh=2457.0001).numpy()
+        np.testing.assert_array_equal(
+            got, np.asarray(jax_ops.edge_density(imgs, thresh=2457.0001, interpret=True)))
 
     def test_pad_edge_counts(self):
         """A bright last column of a ragged frame is a strong edge against
