@@ -5,7 +5,8 @@
 //    Replaces src/repro/kernels/jls/entropy.py::_zigzag_rowsum_kernel
 //    (pallas_call in _prepass).
 //    Bound: HBM bytes, 4 B read + 4 B written per pixel (+4 B per row).
-//    Design: one block of 256 threads per row, grid (H, N); threads stride
+//    Design: one block of 256 threads per row, grid (H, N), images in
+//    slabs of 65535 (any N); threads stride
 //    along the row with coalesced loads, then a warp-shuffle reduction and a
 //    second shuffle over the per-warp sums. Integer sums are exact in any
 //    order; the accumulator is unsigned so an overflowing row wraps exactly
@@ -19,19 +20,22 @@
 //    (pallas_call in _len_rem).
 //    Bound: HBM bytes, 4 B read + 8 B written per pixel.
 //    Design: one thread per symbol, blocks of 256 along a row, grid
-//    (ceil(W/256), H, N); k is read once per thread from a cached word.
+//    (ceil(W/256), H, N), rows and images in slabs of 65535; k is read
+//    once per thread from a cached word.
 //    qmax is an argument, so the one constant lives in the codec.
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "pixels.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
 __global__ void prepass_kernel(const int* __restrict__ res, int* __restrict__ u,
-                               int* __restrict__ rs, int H, int W) {
+                               int* __restrict__ rs, int H, int W, int n0) {
   const int y = blockIdx.x;
-  const int n = blockIdx.y;
+  const int n = n0 + blockIdx.y;
   const size_t row = (static_cast<size_t>(n) * H + y) * W;
   unsigned acc = 0;
   for (int x = threadIdx.x; x < W; x += blockDim.x) {
@@ -55,10 +59,10 @@ __global__ void prepass_kernel(const int* __restrict__ res, int* __restrict__ u,
 
 __global__ void len_rem_kernel(const int* __restrict__ u, const int* __restrict__ ks,
                                int* __restrict__ lens, int* __restrict__ rem, int H, int W,
-                               int qmax) {
+                               int qmax, int y0, int n0) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  const int n = blockIdx.z;
+  const int y = y0 + blockIdx.y;
+  const int n = n0 + blockIdx.z;
   if (x >= W) return;
   const size_t idx = (static_cast<size_t>(n) * H + y) * W + x;
   const int k = __ldg(ks + n);  // 0 <= k <= 30, checked by the wrapper
@@ -73,18 +77,25 @@ __global__ void len_rem_kernel(const int* __restrict__ u, const int* __restrict_
 extern "C" int rice_prepass_launch(const void* res, void* u, void* rs, int N, int H, int W,
                                    void* stream) {
   if (N == 0 || H == 0 || W == 0) return 0;
-  const dim3 grid(H, N);
-  prepass_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(res), static_cast<int*>(u), static_cast<int*>(rs), H, W);
-  return static_cast<int>(cudaGetLastError());
+  // images to grid y in slabs of 65535
+  return static_cast<int>(for_each_slab(N, [&](int n0, int nn) {
+    prepass_kernel<<<dim3(H, nn), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(res), static_cast<int*>(u), static_cast<int*>(rs), H, W, n0);
+    return cudaGetLastError();
+  }));
 }
 
 extern "C" int rice_len_rem_launch(const void* u, const void* ks, void* lens, void* rem, int N,
                                    int H, int W, int qmax, void* stream) {
   if (N == 0 || H == 0 || W == 0) return 0;
-  const dim3 grid((W + kThreads - 1) / kThreads, H, N);
-  len_rem_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(u), static_cast<const int*>(ks), static_cast<int*>(lens),
-      static_cast<int*>(rem), H, W, qmax);
-  return static_cast<int>(cudaGetLastError());
+  // rows to grid y and images to grid z, in slabs of 65535
+  return static_cast<int>(for_each_slab(H, [&](int y0, int nh) {
+    return for_each_slab(N, [&](int n0, int nn) {
+      const dim3 grid((W + kThreads - 1) / kThreads, nh, nn);
+      len_rem_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int*>(u), static_cast<const int*>(ks), static_cast<int*>(lens),
+          static_cast<int*>(rem), H, W, qmax, y0, n0);
+      return cudaGetLastError();
+    });
+  }));
 }

@@ -17,9 +17,10 @@
 // card's integer rate.
 //
 // Design: one thread per pixel, blocks of 256 along a row, grid
-// (ceil(W/256), H, N). Each thread reads its own three neighbours, so the
-// TPU's one-row-shifted `above` input and its bh=64 H padding are gone, and
-// the ragged right edge is masked in-kernel. Samples widen by value
+// (ceil(W/256), H, N), rows and images in slabs of 65535 (any H and N).
+// Each thread reads its own three neighbours, so the TPU's one-row-shifted
+// `above` input and its bh=64 H padding are gone, and the ragged right edge
+// is masked in-kernel. Samples widen by value
 // (uint16 >= 32768 stays positive); sv 5 and 6 shift a possibly negative
 // int right, which is arithmetic, as in the reference; sv 4 may leave
 // [0, 2^bits), and only the final mask brings it back. sv is uniform over
@@ -36,10 +37,10 @@ constexpr int kThreads = 256;
 
 template <typename T>
 __global__ void jls_kernel(const T* __restrict__ in, int* __restrict__ out, int H, int W, int sv,
-                           int bits) {
+                           int bits, int y0, int n0) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  const int n = blockIdx.z;
+  const int y = y0 + blockIdx.y;
+  const int n = n0 + blockIdx.z;
   if (x >= W) return;
   const size_t row = (static_cast<size_t>(n) * H + y) * W;
   const T* cur = in + row;
@@ -77,18 +78,25 @@ __global__ void jls_kernel(const T* __restrict__ in, int* __restrict__ out, int 
 template <typename T>
 cudaError_t launch(const void* in, int* out, int N, int H, int W, int sv, int bits,
                    cudaStream_t stream) {
-  const dim3 grid((W + kThreads - 1) / kThreads, H, N);
-  jls_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(in), out, H, W, sv, bits);
-  return cudaGetLastError();
+  // rows to grid y and images to grid z, in slabs of 65535
+  return for_each_slab(H, [&](int y0, int nh) {
+    return for_each_slab(N, [&](int n0, int nn) {
+      const dim3 grid((W + kThreads - 1) / kThreads, nh, nn);
+      jls_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(in), out, H, W, sv, bits,
+                                                   y0, n0);
+      return cudaGetLastError();
+    });
+  });
 }
 
 }  // namespace
 
+// Refuses (cudaErrorInvalidValue) what the reference refuses too: sv outside
+// 1..7, bits outside 1..30, an item size other than 1 or 2.
 extern "C" int jls_residuals_launch(const void* in, void* out, int N, int H, int W, int itemsize,
                                     int sv, int bits, void* stream) {
   if (N < 0 || H < 0 || W < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (sv < 1 || sv > 7 || bits < 1 || bits > 30) return static_cast<int>(cudaErrorInvalidValue);
-  if (H > kMaxGridYZ || N > kMaxGridYZ) return static_cast<int>(cudaErrorInvalidValue);
   if (itemsize != 1 && itemsize != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0 || H == 0 || W == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

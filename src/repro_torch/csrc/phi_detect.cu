@@ -16,7 +16,8 @@
 // 2 + 4 / 4096 = 2.001 B per pixel. The subtract, abs and compare are far
 // below the card's float32 rate.
 //
-// Design: one block per (tile column, tile row, image). A tile row is cut
+// Design: one block per (tile column, tile row, image), tile rows and images
+// on grid y and z in slabs of 65535, so any N and H run. A tile row is cut
 // into C = ceil(tw / V) chunks of V = 16 / itemsize pixels (8 uint16), and
 // the th x C chunks of the tile are spread over the block, kChunks chunks a
 // thread a pass, each thread issuing all of its 16-byte loads before it
@@ -33,6 +34,9 @@
 // is no multiple of V) and sits on a 16-byte boundary is one uint4 load;
 // any other (a ragged edge, a row that is no 16-byte multiple, a misaligned
 // base) reads its pixels one by one in the same pass, zeros past the frame.
+// A tile wider than the block's lanes (any tw) is the same walk over more
+// passes: every hand-off is between chunk s and s + 1 of one pass, on
+// neighbouring lanes or through lane 31's own load, wherever s falls.
 // The integer count is exact: a warp sum, one shared slot per warp, and
 // thread 0 divides with __fdiv_rn, one IEEE float32 division as in the
 // reference (whatever the compiler's division flags; never a reciprocal
@@ -49,32 +53,14 @@ namespace {
 
 constexpr int kThreads = 256;  // at most, a block
 constexpr int kChunks = 2;     // 16-byte chunks a thread a pass: loads in flight
-constexpr int kMaxTileWidth = 1024;
-
-// Pixel i of a 16-byte chunk of T pixels as float32, by value (the words
-// are picked by constant indices once the caller's loop is unrolled).
-__device__ __forceinline__ float as_f32(unsigned bits, uint8_t) { return static_cast<float>(bits & 0xffu); }
-__device__ __forceinline__ float as_f32(unsigned bits, uint16_t) { return static_cast<float>(bits & 0xffffu); }
-__device__ __forceinline__ float as_f32(unsigned bits, int16_t) {
-  return static_cast<float>(static_cast<int16_t>(bits & 0xffffu));
-}
-__device__ __forceinline__ float as_f32(unsigned bits, int32_t) { return static_cast<float>(static_cast<int>(bits)); }
-__device__ __forceinline__ float as_f32(unsigned bits, float) { return __uint_as_float(bits); }
-
-template <typename T>
-__device__ __forceinline__ float chunk_pixel(const uint4& q, int i) {
-  const int k = i * static_cast<int>(sizeof(T)) / 4;
-  const unsigned word = k == 0 ? q.x : k == 1 ? q.y : k == 2 ? q.z : q.w;
-  return as_f32(word >> (8 * (i * sizeof(T) % 4)), T{});
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 phi_detect_kernel(const T* __restrict__ in, float* __restrict__ out, int H, int W, int th,
-                  int tw, float thresh) {
+                  int tw, float thresh, int Ht, int ty0, int n0) {
   constexpr int V = 16 / sizeof(T);  // pixels per chunk
   __shared__ int warp_hits[kThreads / 32];
-  const int tx = blockIdx.x, ty = blockIdx.y, n = blockIdx.z;
+  const int tx = blockIdx.x, ty = ty0 + blockIdx.y, n = n0 + blockIdx.z;
   const int lane = threadIdx.x & 31;
   const T* plane = in + static_cast<size_t>(n) * H * W;
   const int C = (tw + V - 1) / V;
@@ -104,7 +90,7 @@ phi_detect_kernel(const T* __restrict__ in, float* __restrict__ out, int H, int 
       float px[V];
       if (whole[k]) {
 #pragma unroll
-        for (int i = 0; i < V; ++i) px[i] = chunk_pixel<T>(raw[k], i);
+        for (int i = 0; i < V; ++i) px[i] = static_cast<float>(chunk_value<T>(raw[k], i));
       } else {
 #pragma unroll
         for (int i = 0; i < V; ++i)
@@ -130,7 +116,7 @@ phi_detect_kernel(const T* __restrict__ in, float* __restrict__ out, int H, int 
     int hits = lane < warps ? warp_hits[lane] : 0;
     hits = __reduce_add_sync(0xffffffffu, hits);
     if (lane == 0) {
-      const size_t tile = (static_cast<size_t>(n) * gridDim.y + ty) * gridDim.x + tx;
+      const size_t tile = (static_cast<size_t>(n) * Ht + ty) * gridDim.x + tx;
       out[tile] = __fdiv_rn(static_cast<float>(hits), static_cast<float>(th * tw));
     }
   }
@@ -138,25 +124,30 @@ phi_detect_kernel(const T* __restrict__ in, float* __restrict__ out, int H, int 
 
 }  // namespace
 
-// Refuses (cudaErrorInvalidValue) a tile wider than kMaxTileWidth, a tile
-// dimension below 1, a tile area past int, and a grid past kMaxGridYZ tile
-// rows or images.
+// Refuses (cudaErrorInvalidValue) a tile dimension below 1, as the
+// reference does (it divides by the tile), and a tile of 2^31 pixels or
+// more: the reference sums a tile's hits in float32, which counts exactly
+// only up to 2^24, so no exact result exists to hold such a tile to.
 extern "C" int phi_detect_launch(const void* in, void* out, int N, int H, int W, int th, int tw,
                                  int pixel_code, float thresh, void* stream) {
   if (N == 0 || H == 0 || W == 0) return 0;
-  if (th < 1 || tw < 1 || tw > kMaxTileWidth || static_cast<int64_t>(th) * tw > INT32_MAX)
+  if (N < 0 || H < 0 || W < 0 || th < 1 || tw < 1 || static_cast<int64_t>(th) * tw > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int Ht = (H + th - 1) / th, Wt = (W + tw - 1) / tw;
-  if (Ht > kMaxGridYZ || N > kMaxGridYZ) return static_cast<int>(cudaErrorInvalidValue);
+  const int Ht = static_cast<int>((static_cast<int64_t>(H) + th - 1) / th);
+  const int Wt = static_cast<int>((static_cast<int64_t>(W) + tw - 1) / tw);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(Wt, Ht, N);
   return static_cast<int>(with_pixel_type(pixel_code, [&](auto tag) {
     using T = decltype(tag);
     constexpr int V = 16 / sizeof(T);
     const int64_t per_thread = (static_cast<int64_t>(th) * ((tw + V - 1) / V) + kChunks - 1) / kChunks;
     const int threads = static_cast<int>(per_thread >= kThreads ? kThreads : (per_thread + 31) / 32 * 32);
-    phi_detect_kernel<T><<<grid, threads, 0, s>>>(static_cast<const T*>(in),
-                                                   static_cast<float*>(out), H, W, th, tw, thresh);
-    return cudaGetLastError();
+    // tile rows to grid y and images to grid z, in slabs of 65535
+    return for_each_slab(Ht, [&](int ty0, int nty) {
+      return for_each_slab(N, [&](int n0, int nn) {
+        phi_detect_kernel<T><<<dim3(Wt, nty, nn), threads, 0, s>>>(
+            static_cast<const T*>(in), static_cast<float*>(out), H, W, th, tw, thresh, Ht, ty0, n0);
+        return cudaGetLastError();
+      });
+    });
   }));
 }

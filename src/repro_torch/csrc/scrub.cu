@@ -9,12 +9,15 @@
 // card's integer rate.
 //
 // Design: a streaming copy that moves 16-byte chunks. Each plane (image n,
-// grid z) is cut into a scalar head up to its first 16-byte boundary, an
-// aligned body of uint4 chunks and a scalar tail; the head and tail (at most
-// 15 bytes each) go to the first block of the plane, the body to all of its
-// blocks, kChunks chunks a thread at a stride of the block, all loads issued
-// before any store. A block copies image n's R rects into shared memory
-// once. For each chunk the thread finds the chunk's row and first column
+// grid y, in slabs of 65535 images; a plane of 2^31 pixels or more in
+// segments of whole rows under 2^31 pixels, one launch each) is cut into a
+// scalar head up to its first 16-byte boundary, an aligned body of uint4
+// chunks and a scalar tail; the head and tail (at most 15 bytes each) go to
+// the first block of the segment, the body to all of its blocks, kChunks
+// chunks a thread at a stride of the block, all loads issued before any
+// store. A block copies image n's R rects into shared memory once (in
+// batches of 3072, 48 KB, ORing each batch's coverage, so any R fits). For
+// each chunk the thread finds the chunk's row and first column
 // (division by W with a multiply-high, divisors computed on the host) and
 // asks every rect for the bit mask of the chunk's pixels it covers: a chunk
 // no rect meets (most chunks: the CT rects cover 102 of 512 rows) is stored
@@ -49,39 +52,26 @@ __device__ __forceinline__ unsigned keep_mask(unsigned bits, int w) {
 }
 
 constexpr int kThreads = 256;
-constexpr int kChunks = 4;  // 16-byte chunks per thread: loads in flight
+constexpr int kChunks = 4;        // 16-byte chunks per thread: loads in flight
+constexpr int kRectBatch = 3072;  // rects in shared memory at a time (48 KB)
 
-// n / d for 0 <= n < 2^31 and 1 <= d < 2^31, as a multiply-high and a
-// shift (Granlund-Montgomery, the divisor fixed for the whole launch).
-struct Divider {
-  unsigned magic, shift;
-  explicit Divider(unsigned d) {
-    shift = 0;
-    while ((1u << shift) < d) ++shift;
-    magic = static_cast<unsigned>(((uint64_t{1} << 32) * ((uint64_t{1} << shift) - d)) / d + 1);
-  }
-  __device__ __forceinline__ unsigned div(unsigned n) const {
-    return (__umulhi(n, magic) + n) >> shift;
-  }
-};
-
+// One launch copies a segment of rows y0 .. y0 + seg / W - 1 of each image
+// of a slab (grid y), seg < 2^31 pixels; plane is the image stride.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 scrub_kernel(const T* __restrict__ in, T* __restrict__ out, const int4* __restrict__ rects,
-             int R, int W, unsigned plane, Divider by_w) {
+             int R, int W, unsigned seg, int y0, size_t plane, int n0, Divider by_w) {
   constexpr unsigned kSize = sizeof(T);
   constexpr int V = 16 / kSize;  // pixels per chunk
   extern __shared__ int4 rect_s[];
-  const int n = blockIdx.z;
-  for (int r = threadIdx.x; r < R; r += blockDim.x) rect_s[r] = rects[static_cast<size_t>(n) * R + r];
-  __syncthreads();
-
-  const T* src = in + static_cast<size_t>(n) * plane;
-  T* dst = out + static_cast<size_t>(n) * plane;
+  const int n = n0 + blockIdx.y;
+  const size_t start = static_cast<size_t>(n) * plane + static_cast<size_t>(y0) * W;
+  const T* src = in + start;
+  T* dst = out + start;
   const unsigned misalign = static_cast<unsigned>(reinterpret_cast<uintptr_t>(src) & 15u);
-  const unsigned head = min(plane, misalign ? (16u - misalign) / kSize : 0u);
-  const unsigned chunks = (plane - head) / V;
-  const unsigned tail = plane - head - chunks * V;
+  const unsigned head = min(seg, misalign ? (16u - misalign) / kSize : 0u);
+  const unsigned chunks = (seg - head) / V;
+  const unsigned tail = seg - head - chunks * V;
   const uint4* body_in = reinterpret_cast<const uint4*>(src + head);
   uint4* body_out = reinterpret_cast<uint4*>(dst + head);
 
@@ -92,71 +82,99 @@ scrub_kernel(const T* __restrict__ in, T* __restrict__ out, const int4* __restri
     const unsigned c = first + k * kThreads;
     if (c < chunks) v[k] = __ldcs(body_in + c);
   }
+  // the row and first column of each chunk, and of this thread's pixel of
+  // the scalar head and tail (block 0)
+  int cy[kChunks], cx[kChunks];
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const unsigned e = head + (first + k * kThreads) * V;  // first pixel of the chunk
+    cy[k] = static_cast<int>(by_w.div(e));
+    cx[k] = static_cast<int>(e) - cy[k] * W;
+  }
+  const bool edge = blockIdx.x == 0 && threadIdx.x < head + tail;
+  const unsigned pe = threadIdx.x < head ? threadIdx.x : threadIdx.x + chunks * V;
+  const int py = edge ? static_cast<int>(by_w.div(pe)) : 0;
+  const int px = edge ? static_cast<int>(pe) - py * W : 0;
+
+  // coverage, the rects a batch at a time through shared memory
+  unsigned bits[kChunks] = {};
+  unsigned pbit = 0;
+  for (int r0 = 0; r0 < R; r0 += kRectBatch) {
+    const int nb = min(kRectBatch, R - r0);
+    if (r0 > 0) __syncthreads();
+    for (int r = threadIdx.x; r < nb; r += blockDim.x)
+      rect_s[r] = rects[static_cast<size_t>(n) * R + r0 + r];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      if (first + k * kThreads >= chunks) break;
+      const int x = cx[k], y = y0 + cy[k];
+      if (x + V <= W) {
+        bits[k] |= cover_bits<V>(rect_s, nb, x, y);
+      } else {  // the chunk crosses a row end
+        int qx = x, qy = y;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          while (qx >= W) qx -= W, ++qy;
+          bits[k] |= cover_bits<1>(rect_s, nb, qx, qy) << j;
+          ++qx;
+        }
+      }
+    }
+    if (edge) pbit |= cover_bits<1>(rect_s, nb, px, y0 + py);
+  }
+
 #pragma unroll
   for (int k = 0; k < kChunks; ++k) {
     const unsigned c = first + k * kThreads;
     if (c >= chunks) break;
-    const unsigned e = head + c * V;  // first pixel of the chunk in the plane
-    const int y = static_cast<int>(by_w.div(e));
-    const int x = static_cast<int>(e) - y * W;
-    unsigned bits;
-    if (x + V <= W) {
-      bits = cover_bits<V>(rect_s, R, x, y);
-    } else {  // the chunk crosses a row end
-      bits = 0;
-      int px = x, py = y;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        while (px >= W) px -= W, ++py;
-        bits |= cover_bits<1>(rect_s, R, px, py) << j;
-        ++px;
-      }
-    }
-    if (bits) {
-      v[k].x &= keep_mask<kSize>(bits, 0);
-      v[k].y &= keep_mask<kSize>(bits, 1);
-      v[k].z &= keep_mask<kSize>(bits, 2);
-      v[k].w &= keep_mask<kSize>(bits, 3);
+    if (bits[k]) {
+      v[k].x &= keep_mask<kSize>(bits[k], 0);
+      v[k].y &= keep_mask<kSize>(bits[k], 1);
+      v[k].z &= keep_mask<kSize>(bits[k], 2);
+      v[k].w &= keep_mask<kSize>(bits[k], 3);
     }
     body_out[c] = v[k];
   }
-
-  // the scalar head and tail of the plane, pixel by pixel
-  if (blockIdx.x == 0 && threadIdx.x < head + tail) {
-    const unsigned e = threadIdx.x < head ? threadIdx.x : threadIdx.x + chunks * V;
-    const int y = static_cast<int>(by_w.div(e));
-    const int x = static_cast<int>(e) - y * W;
-    dst[e] = cover_bits<1>(rect_s, R, x, y) ? T(0) : src[e];
-  }
+  // the scalar head and tail of the segment, pixel by pixel
+  if (edge) dst[pe] = pbit ? T(0) : src[pe];
 }
 
 template <typename T>
 cudaError_t launch(const void* in, void* out, const void* rects, int N, int H, int W, int R,
                    cudaStream_t stream) {
-  const unsigned plane = static_cast<unsigned>(H) * static_cast<unsigned>(W);
   constexpr unsigned V = 16 / sizeof(T);
-  const unsigned per_block = kThreads * kChunks;
-  const unsigned blocks = (plane / V + per_block - 1) / per_block;
-  const dim3 grid(blocks ? blocks : 1, 1, N);
-  scrub_kernel<T><<<grid, kThreads, R * sizeof(int4), stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), static_cast<const int4*>(rects), R, W,
-      plane, Divider(static_cast<unsigned>(W)));
-  return cudaGetLastError();
+  // rows a segment: fewer than 2^31 pixels, so a pixel's index is an int
+  const int seg_rows = static_cast<int>(max(1LL, ((1LL << 31) - 1) / W));
+  const size_t plane = static_cast<size_t>(H) * W;
+  const size_t smem = static_cast<size_t>(min(R, kRectBatch)) * sizeof(int4);
+  const Divider by_w(static_cast<unsigned>(W));
+  for (int y0 = 0; y0 < H; y0 += seg_rows) {
+    const unsigned seg = static_cast<unsigned>(min(seg_rows, H - y0)) * static_cast<unsigned>(W);
+    const unsigned per_block = kThreads * kChunks;
+    const unsigned blocks = (seg / V + per_block - 1) / per_block;
+    const cudaError_t e = for_each_slab(N, [&](int n0, int nn) {
+      scrub_kernel<T><<<dim3(blocks ? blocks : 1, nn), kThreads, smem, stream>>>(
+          static_cast<const T*>(in), static_cast<T*>(out), static_cast<const int4*>(rects), R,
+          W, seg, y0, plane, n0, by_w);
+      return cudaGetLastError();
+    });
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// Refuses (cudaErrorInvalidValue) more than kMaxGridYZ images, a plane of
-// 2^31 pixels or more, more rects than shared memory holds, an item size
-// other than 1, 2, 4 or 8, pointers off their item size, and an input and
-// output at different offsets from a 16-byte boundary.
+// Takes any N, H, W and R. Refuses (cudaErrorInvalidValue) only what the
+// wrapper never passes: an item size other than 1, 2, 4 or 8, pointers off
+// their item size, and an input and output at different offsets from a
+// 16-byte boundary.
 extern "C" int scrub_launch(const void* in, void* out, const void* rects, int N, int H, int W,
                             int R, int itemsize, void* stream) {
   if (N == 0 || H == 0 || W == 0) return 0;
   const auto bad = static_cast<int>(cudaErrorInvalidValue);
-  if (N < 0 || H < 0 || W < 0 || R < 0 || N > kMaxGridYZ) return bad;
-  if (static_cast<int64_t>(H) * W >= (int64_t{1} << 31)) return bad;
-  if (static_cast<size_t>(R) * sizeof(int4) > kMaxSharedBytes) return bad;
+  if (N < 0 || H < 0 || W < 0 || R < 0) return bad;
   const auto a = reinterpret_cast<uintptr_t>(in), b = reinterpret_cast<uintptr_t>(out);
   if (itemsize < 1 || a % itemsize || b % itemsize || (a - b) % 16) return bad;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -79,7 +79,9 @@ def edge_density(
     scale; pass ``max_value`` (BitsStored-style) when the stored range is
     narrower, e.g. 4095 for 12-bit data held in uint16. The CUDA kernel
     reads pixels past the frame as zeros, the padding the plain version
-    adds; a tile wider than 1024 pixels raises ``ValueError``.
+    adds; it takes any N, H, W and tile but one of 2^31 pixels or more
+    (raises ``ValueError``: the reference's float32 hit sum is exact only
+    to 2^24).
     """
     images = require_tensor("edge_density", images)
     if thresh is None:

@@ -30,9 +30,9 @@ def scrub_images(
     images: (N, H, W); rects: (N, R, 4) int32 (x, y, w, h); padding rects have
     w<=0/h<=0. Returns a new tensor of the same shape/dtype. ``block`` is the
     TPU tile shape of the JAX signature; the CUDA kernel masks the ragged
-    edge itself and ignores it. The kernel refuses, and this raises
-    ``ValueError`` on, more than 65535 images, a plane of 2^31 pixels or
-    more and more rects than a block's shared memory holds (3072).
+    edge itself and ignores it. Any N, H, W and R run: the kernel launches
+    images in slabs of 65535, a plane of 2^31 pixels or more in row
+    segments, and takes the rects through shared memory 3072 at a time.
     """
     if images.device.type == "cpu":
         return scrub_ref(images, rects.to(torch.int32))

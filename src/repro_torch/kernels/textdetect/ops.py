@@ -48,8 +48,7 @@ def tile_profiles(
     H and W need not be tile multiples: the last tiles see zeros past the
     frame. The default threshold is :func:`binarize_thresh` of the dtype
     (pass ``max_value`` for BitsStored-style narrow ranges held in wide
-    words). On CUDA a tile that does not fit one block (``tw > 1024``, or a
-    shared hit tile over 48 KB: the kernel's launch checks) raises.
+    words). On CUDA any N, H, W and tile run.
     """
     images = require_tensor("tile_profiles", images)
     if thresh is None:

@@ -25,6 +25,7 @@ from repro_torch.kernels.bitmap.ops import (
 )
 from repro_torch.kernels.bitmap.ref import combine_bitmaps_ref
 from repro_torch.dicom import codec
+from repro_torch.kernels.fused import cases as fused_cases
 from repro_torch.kernels.fused.ops import fused_encode_batch, fused_scrub_residuals
 from repro_torch.kernels.fused.ref import fused_ref
 from repro_torch.kernels.jls import entropy
@@ -36,6 +37,7 @@ from repro_torch.kernels.phi_detect.ref import edge_density_ref
 from repro_torch.kernels.scrub import cases as scrub_cases
 from repro_torch.kernels.scrub.ops import pack_rects, scrub_images
 from repro_torch.kernels.scrub.ref import scrub_ref
+from repro_torch.kernels.textdetect import cases as text_cases
 from repro_torch.kernels.textdetect.ops import tile_profiles
 from repro_torch.kernels.textdetect.ref import tile_profiles_torch
 
@@ -108,12 +110,123 @@ def test_scrub_kernel_equals_plain_version_at_chunk_edges(rng, cuda, dtype, shap
 
 
 def test_scrub_kernel_refuses_grid_past_limit(cuda):
-    """Images go to grid z: 65536 of them is past the limit, refused in C."""
-    images = torch.zeros((65536, 1, 1), dtype=torch.uint8, device=cuda)
+    """Images went to grid z, whose limit is 65535: the kernel now launches
+    them in slabs, so 65536 images are scrubbed like any batch."""
+    images = torch.randint(1, 256, (65536, 1, 3), dtype=torch.uint8, device=cuda)
     rects = torch.zeros((65536, 1, 4), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="refused"):
-        scrub_images(images, rects)
-    assert torch.equal(scrub_images(images[:65535], rects[:65535]), images[:65535])
+    rects[1::2, 0] = torch.tensor([1, 0, 1, 1], dtype=torch.int32, device=cuda)
+    got = scrub_images(images, rects)
+    assert torch.equal(got, scrub_ref(images, rects))
+    assert (got[-1, 0, 1] == 0).item() and (got[-2, 0, 1] != 0).item()
+
+
+def test_scrub_kernel_takes_any_rect_count_and_plane_size(rng, cuda):
+    """More rects than a block's shared memory holds at once (3072), and a
+    plane of 2^31 pixels or more (row segments under 2^31 pixels)."""
+    images = torch.from_numpy(_full_range(rng, (2, 70, 301), np.uint16)).to(cuda)
+    rl = [[(int(x), int(y), int(w), int(h)) for x, y, w, h in zip(
+        rng.integers(-5, 301, 5000), rng.integers(-5, 70, 5000), rng.integers(1, 9, 5000),
+        rng.integers(1, 3, 5000))]] * 2
+    rects = torch.from_numpy(pack_rects(rl)).to(cuda)
+    assert torch.equal(scrub_images(images, rects), scrub_ref(images, rects))
+    H, W = 32768, 65537  # 2^31 + 32768 pixels
+    plane = torch.randint(1, 256, (1, H, W), dtype=torch.uint8, device=cuda)
+    rects = torch.tensor([[[5, 0, 3, H], [0, H - 2, W, 2], [W - 1, 30000, 1, 10]]],
+                         dtype=torch.int32, device=cuda)
+    got = scrub_images(plane, rects)
+    assert torch.equal(got, scrub_ref(plane, rects))
+    assert got[0, H - 1].sum().item() == 0 and got[0, 0, 4].item() == plane[0, 0, 4].item()
+
+
+@pytest.mark.parametrize("dtype", fused_cases.DTYPES)
+@pytest.mark.parametrize("shape", fused_cases.SHAPES)
+@pytest.mark.parametrize("offset", fused_cases.OFFSETS)
+def test_fused_kernel_equals_plain_version_at_chunk_edges(rng, cuda, dtype, shape, offset):
+    """The fused kernel's strips of 16-byte chunks against the layouts of
+    ``kernels/fused/cases.py``: rows that are no 16-byte multiple and a base
+    off a 16-byte boundary (the pixel-load path), H = 1, W = 1, W = 257,
+    rect x-edges at chunk boundaries and ends that wrap int32, every sv;
+    exact."""
+    N, H, W = shape
+    images = torch.from_numpy(fused_cases.planes(rng, dtype, shape)).to(cuda)[offset:offset + N]
+    rects = torch.from_numpy(pack_rects(fused_cases.rect_lists(N, H, W))).to(cuda)
+    bits = images.element_size() * 8
+    before = LAUNCHES["fused"]
+    for sv in fused_cases.SVS:
+        got = fused_scrub_residuals(images, rects, sv=sv)
+        assert torch.equal(got, fused_ref(images, rects, sv, bits)), sv
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused"] - before == len(fused_cases.SVS)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("W", [304, 301])
+def test_fused_kernel_takes_any_rect_count(rng, cuda, dtype, W):
+    """More rects than a block's shared memory holds at once (2048 beside
+    the staged rows), on the 16-byte path (W = 304) and the pixel path
+    (W = 301); exact."""
+    images = torch.from_numpy(_full_range(rng, (2, 70, W), dtype)).to(cuda)
+    rl = [[(int(x), int(y), int(w), int(h)) for x, y, w, h in zip(
+        rng.integers(-5, W, 5000), rng.integers(-5, 70, 5000), rng.integers(1, 9, 5000),
+        rng.integers(1, 3, 5000))]] * 2
+    rects = torch.from_numpy(pack_rects(rl)).to(cuda)
+    bits = images.element_size() * 8
+    for sv in (1, 7):
+        assert torch.equal(fused_scrub_residuals(images, rects, sv=sv),
+                           fused_ref(images, rects, sv, bits)), sv
+
+
+@pytest.mark.parametrize("dtype", text_cases.DTYPES)
+@pytest.mark.parametrize("shape", text_cases.SHAPES)
+@pytest.mark.parametrize("offset", text_cases.OFFSETS)
+def test_textdetect_kernel_equals_plain_version_at_chunk_edges(rng, cuda, dtype, shape, offset):
+    """The textdetect kernel's chunk words and row folds against the layouts
+    of ``kernels/textdetect/cases.py``: tiles (24, 100), (32, 128),
+    (32, 2048) and (1, 1), ragged rows and a base off a 16-byte boundary,
+    H = 1, W = 1, W = 257, a tile row of hits and a run across lanes, every
+    pixel type, the float32 straddle and thresh <= 0 on a ragged frame;
+    exact."""
+    N = shape[0]
+    images = torch.from_numpy(text_cases.planes(rng, dtype, shape)).to(cuda)[offset:offset + N]
+    before = LAUNCHES["textdetect"]
+    calls = 0
+    for tile in text_cases.TILES:
+        for thresh in text_cases.threshes(dtype, shape):
+            for got, want in zip(tile_profiles(images, thresh=thresh, tile=tile),
+                                 tile_profiles_torch(images, thresh, tile)):
+                assert torch.equal(got, want), (tile, thresh)
+            calls += 1
+    torch.cuda.synchronize()
+    assert LAUNCHES["textdetect"] - before == calls
+
+
+def test_kernels_take_65536_images_and_rows(rng, cuda):
+    """Images and rows past the 65535 of a grid's y and z: fused, jls and
+    both Rice passes at N = 65536, fused and jls at H = 65536, textdetect
+    and phi_detect at 65536 images and 65537 tile rows; each equal to its
+    plain version."""
+    for shape in ((65536, 2, 9), (2, 65536, 9)):
+        for dtype in (np.uint8, np.uint16):
+            images = torch.from_numpy(_full_range(rng, shape, dtype)).to(cuda)
+            bits = images.element_size() * 8
+            rects = torch.from_numpy(pack_rects([[(1, 0, 2, 1)]] * shape[0])).to(cuda)
+            res = fused_scrub_residuals(images, rects, sv=4)
+            assert torch.equal(res, fused_ref(images, rects, 4, bits)), shape
+            assert torch.equal(jls_residuals(images, sv=5), residuals_ref(images, 5, bits)), shape
+            u, rs = entropy.rice_prepass(res)
+            u_p, rs_p = entropy.rice_prepass_plain(res)
+            assert torch.equal(u, u_p) and torch.equal(rs, rs_p), shape
+            ks = torch.from_numpy(rng.integers(0, 31, size=shape[0]).astype(np.int32)).to(cuda)
+            for a, b in zip(entropy.rice_len_rem(u, ks), entropy.rice_len_rem_plain(u, ks)):
+                assert torch.equal(a, b), shape
+    for shape, tile in (((65536, 1, 8), (1, 8)), ((1, 65537, 8), (1, 8))):
+        images = torch.from_numpy(_full_range(rng, shape, np.uint8)).to(cuda)
+        for got, want in zip(tile_profiles(images, thresh=100.0, tile=tile),
+                             tile_profiles_torch(images, 100.0, tile)):
+            assert torch.equal(got, want), shape
+        got = phi_ops.edge_density(images, thresh=100.0, tile=tile)
+        assert torch.equal(got, edge_density_ref(images, 100.0, tile)), shape
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype", phi_cases.DTYPES)
@@ -236,11 +349,17 @@ def test_detector_kernels_equal_plain_versions(rng, cuda, tile, dtype, thresh):
 
 
 def test_detector_kernels_refuse_oversized_tile(cuda):
-    images = torch.zeros((1, 64, 4096), dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match="tile"):
-        tile_profiles(images, thresh=1.0, tile=(32, 2048))
-    with pytest.raises(ValueError, match="tile"):
-        phi_ops.edge_density(images, thresh=1.0, tile=(32, 2048))
+    """A tile wider than 1024 was refused; both detector kernels now take
+    any tile: (32, 2048), equal to the plain versions."""
+    images = torch.zeros((2, 64, 4100), dtype=torch.uint8, device=cuda)
+    images[:, 3, :] = 255
+    images[:, 9, 100:3000:3] = 255
+    images[1, 20, 17:2100] = 255
+    for got, want in zip(tile_profiles(images, thresh=1.0, tile=(32, 2048)),
+                         tile_profiles_torch(images, 1.0, (32, 2048))):
+        assert torch.equal(got, want)
+    got = phi_ops.edge_density(images, thresh=1.0, tile=(32, 2048))
+    assert torch.equal(got, edge_density_ref(images, 1.0, (32, 2048)))
 
 
 def test_registry_first_pipeline_on_card_equals_host_path(cuda):

@@ -23,6 +23,7 @@ from repro.kernels.scrub.ref import scrub_ref as jax_scrub_ref
 
 from repro_torch.dicom import codec
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.fused import cases as fused_cases
 from repro_torch.kernels.fused.ops import fused_scrub_residuals
 from repro_torch.kernels.fused.ref import fused_ref
 from repro_torch.kernels.jls import entropy
@@ -95,6 +96,27 @@ class TestFused:
                    for _ in range(int(rng.integers(0, 5)))] for _ in range(N)]
             _assert_fused_parity(_full_range(rng, (N, H, W), dtype), rl,
                                  int(rng.integers(1, 8)), bh=16)
+
+    @pytest.mark.parametrize("dtype", fused_cases.DTYPES)
+    @pytest.mark.parametrize("shape", fused_cases.SHAPES)
+    @pytest.mark.parametrize("offset", fused_cases.OFFSETS)
+    def test_chunk_layouts_equal_pallas(self, rng, dtype, shape, offset):
+        """The layouts the CUDA kernel's strips of 16-byte chunks meet
+        (``kernels/fused/cases.py``), on the plain version: a view off a
+        16-byte boundary, rows that are no 16-byte multiple, H = 1, W = 1,
+        W = 257, rect x-edges at chunk boundaries and ends that wrap int32,
+        every sv. Exact against the Pallas kernel (interpret mode) and the
+        staged host pair."""
+        N, H, W = shape
+        base = fused_cases.planes(rng, dtype, shape)
+        imgs = base[offset:offset + N]
+        rl = fused_cases.rect_lists(N, H, W)
+        rects = pack_rects(rl)
+        for sv in fused_cases.SVS:
+            got = fused_scrub_residuals(torch.from_numpy(base)[offset:offset + N], _t(rects), sv=sv)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), np.asarray(jax_fused(imgs, rects, sv=sv)))
+            np.testing.assert_array_equal(got.numpy(), _host_residuals(imgs, rl, sv))
 
     def test_full_range_uint16_never_sign_extends(self):
         img = np.full((1, 4, 6), 40000, np.uint16)

@@ -25,6 +25,7 @@ from repro_torch.detect.regions import (
     rects_from_bands,
 )
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.textdetect import cases as text_cases
 from repro_torch.kernels.textdetect import ops, ref
 
 SHAPES = [(1, 32, 128), (2, 96, 256), (1, 97, 300), (3, 64, 513)]
@@ -70,6 +71,28 @@ class TestKernelParity:
                                                           thresh, tile))
         _assert_profiles_equal(got, jax_ops.tile_profiles(imgs, thresh=thresh, tile=tile,
                                                           interpret=True))
+
+    @pytest.mark.parametrize("dtype", text_cases.DTYPES)
+    @pytest.mark.parametrize("shape", text_cases.SHAPES)
+    @pytest.mark.parametrize("offset", text_cases.OFFSETS)
+    def test_chunk_layouts_equal_jax_kernel(self, rng, dtype, shape, offset):
+        """The layouts the CUDA kernel's 16-byte chunks, 32-pixel words and
+        row joins meet (``kernels/textdetect/cases.py``), on the plain
+        version: a view off a 16-byte boundary, rows that are no 16-byte
+        multiple, H = 1, W = 1, W = 257, tiles (24, 100), (32, 128),
+        (32, 2048) and (1, 1), a tile row of hits and runs across chunks,
+        lanes and groups, every pixel type, the float32 straddle and thresh
+        <= 0 on a ragged frame. Exact against the Pallas kernel (interpret
+        mode)."""
+        N = shape[0]
+        base = text_cases.planes(rng, dtype, shape)
+        imgs = base[offset:offset + N]
+        for tile in text_cases.TILES:
+            for thresh in text_cases.threshes(dtype, shape):
+                got = ops.tile_profiles(torch.from_numpy(base)[offset:offset + N], thresh=thresh,
+                                        tile=tile)
+                _assert_profiles_equal(got, jax_ops.tile_profiles(imgs, thresh=thresh, tile=tile,
+                                                                  interpret=True))
 
     @pytest.mark.parametrize("thresh", [2457.0, 2457.0001, 0.0, -3.5])
     def test_thresholds_straddle_and_padding(self, rng, thresh):
