@@ -11,23 +11,26 @@ Phases, in order; any failure raises and exits non-zero:
 2. kernels — hold each kernel against its plain PyTorch version on the card
             with ``torch.equal`` at the main path's shapes (CT, DX, US chunks,
             the bitmap combine of a 2^22-row scan and its ragged, K=1+1,
-            K=8+1 and not-rooted variants, an over-long program refused,
+            K=8+1 and not-rooted variants, programs of 65, 1000 and 5000 ops
+            and a 40-deep nesting, which the wrapper schedules into launches,
             every selection value at one small shape; for the two detector
             kernels the unknown-device CT and DX chunks, a float32 stack, a
             (16, 64) tile and the float32 threshold straddle 2457.0001; for
             the jls kernel every selection value at the CT, DX and US stacks,
             a full-range uint16 stack and the edges H = 1, W = 1, W = 257,
-            and its refusals; for scrub, fused, phi_detect and textdetect the
-            layouts their 16-byte chunks meet, from ``kernels/*/cases.py``;
+            and its refusals; for scrub, fused, jls, phi_detect and
+            textdetect the layouts their 16-byte chunks meet, from
+            ``kernels/*/cases.py``;
             and inputs past the launch limits of earlier versions: 65536
             images, 65536 rows, 65537 tile rows, tile (32, 2048), 5000 rects
             in scrub and fused, a plane of 2^31 + 32768 pixels), and time
             kernel, plain version and (where one exists) a single PyTorch
             call computing the same function, cold L2, CUDA events around the
-            call, median of 21; scrub and
-            phi_detect also where the paths launch them (the US chunk with
-            recompression off; the audit's one-image CT and DX launches) and
-            at one block (the floor of a time taken this way). Then the
+            call, median of 21; scrub, phi_detect and jls also where the
+            paths launch them (the US chunk with recompression off; the
+            audit's one-image CT and DX launches; the CT, DX and US chunks of
+            the encode) and scrub, phi_detect and bitmap at one block or word
+            (the floor of a time taken this way). Then the
             staged scrub -> jls pair against the fused kernel at the CT chunk
             (equal; both timed).
 3. pipeline — paths, each driven with the launch counts set to 0 just
@@ -82,11 +85,13 @@ Phases, in order; any failure raises and exits non-zero:
             same runs with ``--device cpu`` (all but the counted plain card
             run in child processes, the four runs at once).
 4. result — fused and textdetect timed at every shape their wrappers
-            counted on the cold and the detector path, and at one block;
-            launches x (ms - bound) of every kernel (for scrub, fused,
-            phi_detect and textdetect at each shape they were launched at on
-            the counted paths, with the launches counted there by shape), one
-            JSON line listing every kernel, then the device line.
+            counted on the cold and the detector path, and at one block, and
+            bitmap at each shape it was counted at on path (e);
+            launches x (ms - bound) of every kernel (for scrub, fused, jls,
+            phi_detect, textdetect and bitmap at each shape they were
+            launched at on the counted paths, with the launches counted there
+            by shape), one JSON line listing every kernel, then the device
+            line.
 
 Needs CUDA and the repository's ``src/`` beside this file; imports nothing of
 the JAX package.
@@ -647,16 +652,33 @@ def check_detector_kernels(us_shape) -> dict:
     return rows
 
 
+def bitmap_program(k: int, n_ops: int):
+    """n_ops ops over k leaves for timing: the leaves ANDed in turn (the last
+    the validity leaf, as ``compile_query`` ends), NOTs after the first leaf
+    to make up the count."""
+    used = max(min(k, (n_ops + 1) // 2), 1)
+    prog = [("leaf", 0)]
+    for i in range(1, used):
+        prog += [("leaf", i), ("and",)]
+    return tuple(prog[:1] + [("not",)] * (n_ops - len(prog)) + prog[1:])
+
+
 def check_bitmap_kernel() -> dict:
     """The bitmap combine against its plain version, exact (bitmap and
-    count), at the 2^22-row full scan of path (d) and its variants; timed
-    at the full scan (K = 4 leaves + validity)."""
+    count), at the 2^22-row full scan of path (d) and its variants, and
+    programs longer (65, 1000, 5000 ops) and deeper (40 nested And/Or) than
+    one launch takes, through the wrapper's schedule; timed at the full scan
+    (K = 4 leaves + validity) and at one word (the floor of a time taken
+    this way)."""
+    from repro_torch.kernels.bitmap.cases import chain, nested, random_program
     from repro_torch.kernels.bitmap.ops import (
         combine_bitmaps,
         combine_bitmaps_launch,
         combine_bitmaps_torch,
         pack_mask,
+        program_depth,
         program_limits,
+        schedule_program,
     )
 
     rng = np.random.default_rng(13)
@@ -666,13 +688,7 @@ def check_bitmap_kernel() -> dict:
         masks = [rng.random(n) < rng.random() for _ in range(k)] + [rng.random(n) < 0.95]
         return torch.stack([pack_mask(torch.from_numpy(m).cuda()) for m in masks])
 
-    def chain(k):
-        """k leaves joined by and/or with a NOT on every other one, then the
-        validity AND, as ``compile_query`` emits them."""
-        prog = [("leaf", 0)]
-        for i in range(1, k):
-            prog += [("leaf", i)] + ([("not",)] if i % 2 else []) + [("and",) if i % 3 else ("or",)]
-        return tuple(prog) + (("leaf", k), ("and",))
+    max_ops, max_depth = program_limits()
 
     def case(what, leaves, prog, want_count=None):
         got, count = combine_bitmaps(leaves, prog)
@@ -682,25 +698,27 @@ def check_bitmap_kernel() -> dict:
             raise AssertionError(f"bitmap kernel != plain version on {what}")
         if want_count is not None and count != want_count:
             raise AssertionError(f"bitmap count {count} != {want_count} on {what}")
-        log(f"  equal: {what}: {len(prog)} ops, count {count}")
+        launches = len(schedule_program(prog, max_ops, leaves.shape[0]))
+        log(f"  equal: {what}: {len(prog)} ops, {program_depth(prog)} deep, {launches} "
+            f"launch(es), count {count}")
 
     full = leaves_of(n_full, 4)
     case(f"W={full.shape[1]} (n=2^22), K=4+1", full, chain(4))
     case("ragged n=2^22-5, K=4+1", leaves_of(n_full - 5, 4), chain(4))
     case("n=2^22, K=1+1", leaves_of(n_full, 1), chain(1))
-    case("n=2^22, K=8+1", leaves_of(n_full, 8), chain(8))
+    eight = leaves_of(n_full, 8)
+    case("n=2^22, K=8+1", eight, chain(8))
     n = n_full - 5
     empty_and_valid = torch.stack([pack_mask(torch.zeros(n, dtype=torch.bool, device="cuda")),
                                    pack_mask(torch.ones(n, dtype=torch.bool, device="cuda"))])
     case("not-rooted, n=2^22-5 (tail bits stay out)", empty_and_valid,
          (("leaf", 0), ("not",), ("leaf", 1), ("and",)), want_count=n)
-    max_ops, max_depth = program_limits()
-    try:
-        combine_bitmaps(full, (("leaf", 0),) + (("not",),) * max_ops)
-    except ValueError as e:
-        log(f"  refused: a program of {max_ops + 1} ops (limit {max_ops}, depth {max_depth}): {e}")
-    else:
-        raise AssertionError("bitmap kernel took a program one op over its limit")
+    # past one launch (max_ops ops, max_depth deep): scheduled, split
+    for n_ops in (65, 1000, 5000):
+        case(f"random program, n=2^22, K=8+1 (one launch takes {max_ops} ops)", eight,
+             random_program(rng, n_ops, 8))
+    case(f"40-deep And/Or nesting, n=2^22-5, K=8+1 (one launch takes {max_depth} deep)",
+         leaves_of(n, 8), nested(40, 8))
     log("bitmap kernel: equals its plain version on every case")
 
     prog = chain(4)
@@ -717,17 +735,38 @@ def check_bitmap_kernel() -> dict:
         "max_abs_err": 0,
         "shape": f"({K},{W}) int32 words (n=2^22, 4 leaves + validity), {len(prog)} ops",
     }
-    log(f"time bitmap: {json.dumps(row)}")
+    one = leaves_of(1, 1)
+    row["floor_ms"] = time_ms(lambda: combine_bitmaps_launch(one, chain(1)))
+    log(f"time bitmap: {json.dumps(row)}; one-word launch {tuple(one.shape)}: {row['floor_ms']} ms")
     return {"bitmap": row}
+
+
+def bitmap_launched_at(key) -> dict:
+    """bitmap timed at a launch its wrapper counted on a path: ``key`` is
+    ((K, W), dtype, ops) as ``LAUNCH_SHAPES`` holds it; random words, the
+    program of ``bitmap_program``."""
+    from repro_torch.kernels.bitmap.ops import combine_bitmaps_launch
+
+    (K, W), _, n_ops = key
+    rng = np.random.default_rng(21)
+    leaves = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=(K, W), dtype=np.int64)
+                              .astype(np.int32)).cuda()
+    prog = bitmap_program(K, n_ops)
+    return launched_row(f"({K},{W}) int32 words, {n_ops} ops", key,
+                        lambda: combine_bitmaps_launch(leaves, prog), (K + 1) * W * 4,
+                        (n_ops + 1) * W)
 
 
 def check_jls_kernel(us_shape) -> dict:
     """Kernel 8, the JPEG-Lossless predictor, against its plain version
     (``torch.equal``) at the CT chunk and the DX and US stacks (every sv), a
     full-range uint16 stack, every sv at a small ragged shape in uint8 and
-    uint16, and the edges H = 1, W = 1 and W = 257; the launch refusals.
-    Timed at all three stacks (the CT chunk is its row); then the staged
-    scrub -> jls pair against the fused kernel at the CT chunk with R = 2."""
+    uint16, the edges H = 1, W = 1 and W = 257, and every layout of
+    ``kernels/fused/cases.py`` (shapes x offsets x sv, uint8 and uint16);
+    the launch refusals. Timed at all three stacks, where path (f) launches
+    it (the CT chunk is its row); then the staged scrub -> jls pair against
+    the fused kernel at the CT chunk with R = 2."""
+    from repro_torch.kernels.fused import cases as fused_cases
     from repro_torch.kernels.fused.ops import fused_scrub_residuals
     from repro_torch.kernels.jls.ops import jls_residuals
     from repro_torch.kernels.jls.ref import residuals_ref
@@ -763,6 +802,23 @@ def check_jls_kernel(us_shape) -> dict:
         case(f"(2,70,90) {name}", full_range((2, 70, 90), dtype), every)
         for shape, edge in (((3, 1, 300), "H=1"), ((3, 70, 1), "W=1"), ((2, 9, 257), "W=257")):
             case(f"{edge} {shape} {name}", full_range(shape, dtype), every)
+    # the layouts of the strip walker shared with fused: ragged rows and
+    # batches cut off 16 bytes take the pixel path
+    n_layouts = 0
+    for dtype in fused_cases.DTYPES:
+        for shape in fused_cases.SHAPES:
+            for offset in fused_cases.OFFSETS:
+                planes = torch.from_numpy(fused_cases.planes(rng, dtype, shape)).cuda()
+                images = planes[offset:offset + shape[0]]
+                bits = images.element_size() * 8
+                for sv in fused_cases.SVS:
+                    got, want = jls_residuals(images, sv=sv), residuals_ref(images, sv, bits)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"jls kernel != plain version on fused case {shape} "
+                                             f"{np.dtype(dtype).name} offset {offset} sv {sv}")
+                    n_layouts += 1
+    log(f"  equal: {n_layouts} fused/cases.py layouts (shapes x offsets x sv, uint8 and uint16)")
     for bad in ({"sv": 0}, {"sv": 8}, {"bits": 31}):
         try:
             jls_residuals(stacks["CT"], **bad)
@@ -775,20 +831,20 @@ def check_jls_kernel(us_shape) -> dict:
     rows = {}
     for name, images in stacks.items():
         npx = images.numel()
+        dtype = str(images.dtype).removeprefix("torch.")
         # one read of the plane, one int32 write; ~12 integer operations a
-        # pixel (three neighbour loads' bounds, predictor, mask, wrap)
-        b_ms, b_by = bound(npx * (images.element_size() + 4), npx * 12)
-        rows[name] = {
-            "ms": time_ms(lambda: jls_residuals(images, sv=1)),
-            "plain_ms": time_ms(lambda: residuals_ref(images, 1, images.element_size() * 8)),
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": None,  # no single PyTorch call computes the residuals
-            "max_abs_err": 0,
-            "shape": f"{tuple(images.shape)} {str(images.dtype).removeprefix('torch.')}, sv=1",
-        }
-        log(f"time jls {name}: {json.dumps(rows[name])}, "
-            f"{100 * b_ms / rows[name]['ms']:.1f} % of the bound")
+        # pixel (predictor, wrap, neighbour bookkeeping)
+        rows[name] = launched_row(f"{tuple(images.shape)} {dtype}, sv=1",
+                                  (tuple(images.shape), dtype, 1),
+                                  lambda images=images: jls_residuals(images, sv=1),
+                                  npx * (images.element_size() + 4), npx * 12)
+    ct_row = dict(rows["CT"])
+    ct_row.update({
+        "plain_ms": time_ms(lambda: residuals_ref(stacks["CT"], 1, 16)),
+        "library_ms": None,  # no single PyTorch call computes the residuals
+        "max_abs_err": 0,
+        "launched": list(rows.values()),
+    })
 
     # the staged pair (scrub, then jls) against the fused kernel: 10 against
     # 6 B/px in uint16
@@ -808,7 +864,7 @@ def check_jls_kernel(us_shape) -> dict:
     pair["staged_over_fused"] = pair["staged"]["ms"] / pair["fused"]["ms"]
     log(f"staged scrub -> jls vs fused at the CT chunk (32,512,512) u16, R=2: equal; "
         f"{json.dumps(pair)}")
-    return {"jls": rows["CT"]}
+    return {"jls": ct_row}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1100,10 +1156,12 @@ def run_encode_path(studies) -> dict:
     each study's stack in 32-plane chunks, in a counted window; every
     payload byte-equal to the host ``codec.encode`` of its plane (blanked,
     for the fused encode). Then MB/s of ``encode_batch`` against the host
-    ``codec.encode`` loop, ROUNDS alternating runs. Returns the launches."""
+    ``codec.encode`` loop, ROUNDS alternating runs. Returns the launches and
+    the launches its wrappers counted by shape (``LAUNCH_SHAPES``), as
+    "encode"."""
     from repro_torch.core.scrub import numpy_blank
     from repro_torch.dicom import codec
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import LAUNCH_SHAPES, LAUNCHES, reset_launches
     from repro_torch.kernels.fused.ops import fused_encode_batch
     from repro_torch.kernels.jls.ops import encode_batch
 
@@ -1123,8 +1181,9 @@ def run_encode_path(studies) -> dict:
     kernel_fused(stacks[-1][1][:1], stacks[-1][2])
     reset_launches()
     k_out = [(kernel_encode(planes), kernel_fused(planes, rects)) for _, planes, rects in stacks]
-    launches = dict(LAUNCHES)
-    log(f"encode path launches: {json.dumps(launches)}")
+    launches, shapes = dict(LAUNCHES), Counter(LAUNCH_SHAPES)
+    log(f"encode path launches: {json.dumps(launches)}; by shape "
+        f"{json.dumps(sorted(map(list, shapes.items()), key=str))}")
     for k in ("jls", "fused"):
         assert launches[k] > 0, f"kernel {k} never launched on the encode path"
     for (s, planes, rects), (k_enc, k_fused) in zip(stacks, k_out):
@@ -1154,7 +1213,7 @@ def run_encode_path(studies) -> dict:
         log(f"encode throughput {s.accession} {planes.shape}: {mb:.1f} MB; MB/s median "
             f"encode_batch {statistics.median(rates['kernel'])} host codec.encode "
             f"{statistics.median(rates['host'])}; all runs {json.dumps(rates)}")
-    return launches
+    return {"launches": launches, "shapes": {"encode": shapes}}
 
 
 # path (g): each launcher run but the counted card run goes to a child
@@ -1505,8 +1564,8 @@ def check_served(k_dep, k_run, h_dep, h_run, want):
 
 def run_serving_path(gen, us_device) -> dict:
     """Path (e), then path (h) on its deployments. Returns the launches of
-    each one's counted window."""
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    each one's counted window, and (e)'s by shape (``LAUNCH_SHAPES``)."""
+    from repro_torch.kernels import LAUNCH_SHAPES, LAUNCHES, reset_launches
 
     studies = serve_corpus(gen, us_device)
     for s in studies:
@@ -1522,8 +1581,9 @@ def run_serving_path(gen, us_device) -> dict:
         k_dep = deploy("kernel", sources["kernel"], tmp)
         reset_launches()
         k_run = serve(k_dep, query, mrns)
-        launches = dict(LAUNCHES)
-        log(f"serving path launches: {json.dumps(launches)}")
+        launches, shapes = dict(LAUNCHES), Counter(LAUNCH_SHAPES)
+        log(f"serving path launches: {json.dumps(launches)}; bitmap by shape "
+            f"{json.dumps([list(kv) for kv in shapes.items() if kv[0][0] == 'bitmap'])}")
         for k in SERVE_KERNELS:
             assert launches[k] > 0, f"kernel {k} never launched on the serving path"
         h_dep = deploy("host", sources["host"], tmp)
@@ -1555,7 +1615,7 @@ def run_serving_path(gen, us_device) -> dict:
         ingest_launches = run_ingest_path(k_dep, h_dep, studies, query, mrns)
         for dep in (k_dep, h_dep):
             close(dep)
-    return {"serving": launches, "ingest": ingest_launches}
+    return {"serving": launches, "ingest": ingest_launches, "shapes": {"serving": shapes}}
 
 
 # path (h): the change feed's seed, and the kernels its counted window needs.
@@ -1816,7 +1876,8 @@ def main() -> None:
 
     # the kernel-assisted encode (f): the jls and fused kernels under the
     # host Golomb-Rice coder
-    launches["jls"] = run_encode_path([ct, dx, us])["jls"]
+    encoded = run_encode_path([ct, dx, us])
+    launches["jls"] = encoded["launches"]["jls"]
 
     # the serving paths: the catalog at 2^22 rows (d), then query-then-
     # de-identify through the broker and the worker pool (e), then change-
@@ -1831,11 +1892,13 @@ def main() -> None:
     run_launcher_path()
 
     # launches x (ms - bound): each kernel at each shape its wrapper counted
-    # on the path its launches are read from (scrub and phi_detect timed in
-    # phase 2, fused and textdetect at the counted shapes now), the others
-    # at their timed shape
+    # on the path its launches are read from (scrub, phi_detect and jls timed
+    # in phase 2, fused, textdetect and bitmap at the counted shapes now),
+    # the Rice passes at their timed shape
     by_shape = {"scrub": (main_shapes, {job_label((us, False, None))}),
                 "phi_detect": (det_shapes, {"during"}),
+                "jls": (encoded["shapes"], {"encode"}),
+                "bitmap": (served["shapes"], {"serving"}),
                 "fused": (main_shapes, {job_label(job) for job in main_jobs if job[1]}),
                 "textdetect": (det_shapes, {job_label(job) for job in det_jobs})}
     for name, (by_job, where) in by_shape.items():
@@ -1847,6 +1910,8 @@ def main() -> None:
         if name in ("fused", "textdetect"):
             rows[name]["launched"] = [launched_at(name, key, (ct, dx, us, uct, udx)) for key in sorted(total)]
             rows[name]["launched_floor_ms"] = launched_floor_ms(name)
+        elif name == "bitmap":
+            rows[name]["launched"] = [bitmap_launched_at(key) for key in sorted(total)]
         timed = {at["key"]: at for at in rows[name]["launched"]}
         assert set(total) == set(timed), f"{name}: launched at {sorted(total)}, timed at {sorted(timed)}"
         for key, at in timed.items():

@@ -9,11 +9,14 @@ process on one card.
 ``.chipcheck/`` is git-ignored. The other tree's ``csrc/`` is built with
 this tree's flags, and both versions are launched through this tree's
 wrappers (``kernels.build.sources_from``), so their C entry points must take
-the same arguments. The kernels are scrub, phi_detect, fused and textdetect
-at the CT chunk and where the paths launch them (fused at the CT, DX and
-US chunks of the cold path; textdetect at the unknown-CT, unknown-DX, DX
-and US chunks of the detector path). At each shape both versions run on
-the same inputs: their outputs must be equal, and each is timed as
+the same arguments. The kernels are scrub, phi_detect, fused, textdetect
+and jls at the CT chunk and where the paths launch them (fused at the CT,
+DX and US chunks of the cold path; textdetect at the unknown-CT,
+unknown-DX, DX and US chunks of the detector path; jls at the CT, DX and US
+chunks of the encode), and bitmap at the 2^22-row full scan ((5, 131072)
+words, the 11 ops of ``kernels/bitmap/cases.py::chain(4)``) and at one
+word. At each shape both versions run on the same inputs: their outputs
+must be equal, and each is timed as
 ``chip_smoke.py`` times a kernel (cold L2, CUDA events around the call,
 median of 21) in the order other, this, this, other. Logs each tree's
 registers and spills a kernel (``nvcc -Xptxas -v``), prints one JSON line
@@ -21,13 +24,15 @@ per shape, the card's name and power limit, and a last JSON line with
 every row.
 
 With ``--trace DIR`` it then records a ``torch.profiler`` (CUPTI) trace of
-textdetect, both trees, at each of its shapes above, at one block, and over
-1-32 images of the CT chunk beside phi_detect (which reads the same
-bytes), and keeps the traces in DIR. From each it prints the kernel's
-device duration and the device's idle time before it (median of 21, each
-after an L2 flush), and for the image sweep a least-squares line of
-duration against megabytes: its intercept is the kernel's fixed cost, its
-slope the rate at which it streams.
+textdetect, jls and bitmap, both trees, at each of their shapes above,
+textdetect also at one block and over 1-32 images of the CT chunk beside
+phi_detect (which reads the same bytes), and keeps the traces in DIR. From
+each it prints the kernel's device duration and the device's idle time
+before it, since the end of the kernel before (the L2 flush, or the
+bitmap wrapper's zeroing of its count) (median of 21, each after an L2
+flush), and for the image sweep a least-squares line of duration against
+megabytes: its intercept is the kernel's fixed cost, its slope the rate at
+which it streams.
 """
 from __future__ import annotations
 
@@ -58,7 +63,10 @@ def cases(rng) -> dict:
     card."""
     from repro_torch.dicom.devices import DeviceKey
     from repro_torch.dicom.generator import StudyGenerator
+    from repro_torch.kernels.bitmap.cases import chain
+    from repro_torch.kernels.bitmap.ops import combine_bitmaps_launch
     from repro_torch.kernels.fused.ops import fused_scrub_residuals
+    from repro_torch.kernels.jls.ops import jls_residuals
     from repro_torch.kernels.phi_detect import cases as phi_cases
     from repro_torch.kernels.phi_detect.ops import edge_density
     from repro_torch.kernels.scrub.ops import pack_rects, scrub_images
@@ -87,6 +95,9 @@ def cases(rng) -> dict:
     thresh = 4095 * 0.25
     audit = {shape: torch.from_numpy(phi_cases.planes(rng, np.uint16, shape)[:1]).cuda()
              for shape in AUDIT_SHAPES}
+    words = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=(5, 1 << 17), dtype=np.int64)
+                             .astype(np.int32)).cuda()
+    one_word = words[:2, :1].contiguous()
     return {
         "scrub": [
             (f"{CT} uint16, R=2", lambda: scrub_images(ct, ct_r)),
@@ -108,6 +119,17 @@ def cases(rng) -> dict:
              lambda img=img, t=t: tile_profiles(img, thresh=t))
             for shape, (img, t) in text.items()
         ],
+        "jls": [
+            (f"{tuple(img.shape)} {str(img.dtype).removeprefix('torch.')}, sv=1",
+             lambda img=img: jls_residuals(img, sv=1))
+            for img in (ct, dx, us)
+        ],
+        "bitmap": [
+            ("(5, 131072) int32 words (n=2^22), 11 ops",
+             lambda: combine_bitmaps_launch(words, chain(4))),
+            ("(2, 1) int32 words, one word, 3 ops",
+             lambda: combine_bitmaps_launch(one_word, chain(1))),
+        ],
     }
 
 
@@ -118,11 +140,16 @@ def same(a, b) -> bool:
     return torch.equal(a, b)
 
 
+# the CUDA function of each kernel, as the trace names it
+FUNCTION = {"bitmap": "combine_kernel"}
+
+
 def device_us(call, kernel: str, path: Path, reps: int = REPS) -> tuple[float, float]:
-    """Median device duration (us) of ``<kernel>_kernel`` over ``reps`` calls
-    of ``call``, each after an L2 flush, and the median idle time of the card
-    between the flush's end and the kernel's start, from a ``torch.profiler``
-    trace kept at ``path``."""
+    """Median device duration (us) of the kernel's CUDA function (``FUNCTION``,
+    else ``<kernel>_kernel``) over ``reps`` calls of ``call``, each after an
+    L2 flush, and the median idle time of the card between the end of the
+    kernel before it (the flush, or what the call launched first) and its
+    start, from a ``torch.profiler`` trace kept at ``path``."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
@@ -137,17 +164,19 @@ def device_us(call, kernel: str, path: Path, reps: int = REPS) -> tuple[float, f
     runs = sorted((e for e in json.loads(path.read_text())["traceEvents"]
                    if e.get("cat") == "kernel"), key=lambda e: e["ts"])
     durs, gaps = [], []
+    function = FUNCTION.get(kernel, f"{kernel}_kernel")
     for prev, e in zip(runs, runs[1:]):
-        if f"{kernel}_kernel" in e["name"]:
+        if function in e["name"]:
             durs.append(e["dur"])
             gaps.append(e["ts"] - (prev["ts"] + prev["dur"]))
     if len(durs) != reps:
-        raise RuntimeError(f"{path}: {len(durs)} {kernel}_kernel launches traced, not {reps}")
+        raise RuntimeError(f"{path}: {len(durs)} {function} launches traced, not {reps}")
     return statistics.median(durs), statistics.median(gaps)
 
 
 def trace(table: dict, other: Path, out: Path, rng) -> list[dict]:
-    """textdetect's device durations from traces (module docstring)."""
+    """textdetect's, jls's and bitmap's device durations from traces (module
+    docstring)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.phi_detect.ops import edge_density
     from repro_torch.kernels.textdetect import cases as text_cases
@@ -157,7 +186,8 @@ def trace(table: dict, other: Path, out: Path, rng) -> list[dict]:
     ct = torch.from_numpy(text_cases.planes(rng, np.uint16, CT)[:CT[0]]).cuda()
     t = text_cases.top(np.uint16) * 0.6
     one = ct[:1, :1, :16].contiguous()  # one block
-    calls = [("textdetect", label, call) for label, call in table["textdetect"]]
+    calls = [(kernel, label, call) for kernel in ("textdetect", "jls", "bitmap")
+             for label, call in table[kernel]]
     calls.append(("textdetect", "(1, 1, 16) uint16, one block", lambda: tile_profiles(one, thresh=t)))
     for n in (1, 2, 4, 8, 16, 32):
         img = ct[:n]
@@ -189,7 +219,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path, help="root of the other tree (holds src/repro_torch/csrc)")
     ap.add_argument("--trace", type=Path, metavar="DIR",
-                    help="also trace textdetect with torch.profiler and keep the traces in DIR")
+                    help="also trace textdetect, jls and bitmap with torch.profiler and keep the "
+                         "traces in DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_ab: CUDA is not available; this script runs only on a card")

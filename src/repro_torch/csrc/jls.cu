@@ -11,82 +11,40 @@
 // after scrub.cu, and the residual stage of the kernel-assisted encode.
 //
 // Bound on the card: HBM bytes. One read of the uint8/uint16 plane and one
-// int32 write: 2 + 4 = 6 B per pixel for uint16 (5 B for uint8). The row
-// y-1 a thread also reads was read by the block of row y-1 and comes from L2.
-// The arithmetic is a dozen integer operations per pixel, far below the
-// card's integer rate.
+// int32 write: 2 + 4 = 6 B per pixel for uint16 (5 B for uint8).
 //
-// Design: one thread per pixel, blocks of 256 along a row, grid
-// (ceil(W/256), H, N), rows and images in slabs of 65535 (any H and N).
-// Each thread reads its own three neighbours, so the TPU's one-row-shifted
-// `above` input and its bh=64 H padding are gone, and the ragged right edge
-// is masked in-kernel. Samples widen by value
-// (uint16 >= 32768 stays positive); sv 5 and 6 shift a possibly negative
-// int right, which is arithmetic, as in the reference; sv 4 may leave
-// [0, 2^bits), and only the final mask brings it back. sv is uniform over
-// the grid, so the switch never diverges. Indices are size_t: a DX stack
-// is 20.5 M pixels.
+// What held the first design back (one thread per pixel, 2-byte loads, each
+// thread reloading its three neighbours) is what held fused.cu back before
+// its redesign. Design: fused's strip walker (residuals.cuh) run with no
+// rects (R = 0): a thread a 16-byte chunk walked down 8 rows, the row above
+// in registers, the left neighbour from lane - 1 by __shfl_up_sync, the
+// warp's row staged in shared memory for 512-byte streaming stores, pixel
+// loads for ragged or misaligned rows, sv = 1 a template argument on the
+// 16-byte path. A walker specialized for no rects measured slower
+// (residuals.cuh says why).
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "pixels.cuh"
+#include "residuals.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-template <typename T>
-__global__ void jls_kernel(const T* __restrict__ in, int* __restrict__ out, int H, int W, int sv,
-                           int bits, int y0, int n0) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = y0 + blockIdx.y;
-  const int n = n0 + blockIdx.z;
-  if (x >= W) return;
-  const size_t row = (static_cast<size_t>(n) * H + y) * W;
-  const T* cur = in + row;
-  const T* up = y > 0 ? cur - W : cur;  // only read when y > 0
-
-  const int xv = static_cast<int>(cur[x]);
-  const int ra = x > 0 ? static_cast<int>(cur[x - 1]) : 0;
-  const int rb = y > 0 ? static_cast<int>(up[x]) : 0;
-  const int rc = (x > 0 && y > 0) ? static_cast<int>(up[x - 1]) : 0;
-
-  int pred;
-  if (y == 0 && x == 0) {
-    pred = 1 << (bits - 1);
-  } else if (y == 0) {
-    pred = ra;
-  } else if (x == 0) {
-    pred = rb;
-  } else {
-    switch (sv) {
-      case 1: pred = ra; break;
-      case 2: pred = rb; break;
-      case 3: pred = rc; break;
-      case 4: pred = ra + rb - rc; break;
-      case 5: pred = ra + ((rb - rc) >> 1); break;  // arithmetic shift
-      case 6: pred = rb + ((ra - rc) >> 1); break;
-      default: pred = (ra + rb) >> 1; break;        // sv == 7
-    }
-  }
-  const int mask = (1 << bits) - 1;
-  int r = (xv - pred) & mask;
-  if (r >= (1 << (bits - 1))) r -= (1 << bits);
-  out[row + x] = r;
+template <typename T, int SV, bool kVec>
+__global__ void __launch_bounds__(residuals::kThreads, 1)
+jls_kernel(const T* __restrict__ in, const int4* __restrict__ rects, int* __restrict__ out, int R,
+           int H, int W, int sv, int bits, int n0, int C, unsigned threads, Divider by_c) {
+  residuals::walk<T, SV, kVec>(in, rects, out, R, H, W, sv, bits, n0 + blockIdx.y, C, threads,
+                               by_c);
 }
 
 template <typename T>
-cudaError_t launch(const void* in, int* out, int N, int H, int W, int sv, int bits,
-                   cudaStream_t stream) {
-  // rows to grid y and images to grid z, in slabs of 65535
-  return for_each_slab(H, [&](int y0, int nh) {
-    return for_each_slab(N, [&](int n0, int nn) {
-      const dim3 grid((W + kThreads - 1) / kThreads, nh, nn);
-      jls_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(in), out, H, W, sv, bits,
-                                                   y0, n0);
-      return cudaGetLastError();
-    });
-  });
+cudaError_t launch_typed(const void* in, int* out, int N, int H, int W, int sv, int bits,
+                         cudaStream_t s) {
+  // the pixel path, or the 16-byte path with sv = 1 fixed or read at run time
+  residuals::Kernel<T> kernel = jls_kernel<T, 0, false>;
+  if (residuals::vector_ok<T>(in, out, W))
+    kernel = sv == 1 ? jls_kernel<T, 1, true> : jls_kernel<T, 0, true>;
+  return residuals::launch<T>(kernel, in, nullptr, out, N, H, W, 0, sv, bits, s);
 }
 
 }  // namespace
@@ -101,6 +59,6 @@ extern "C" int jls_residuals_launch(const void* in, void* out, int N, int H, int
   if (N == 0 || H == 0 || W == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* o = static_cast<int*>(out);
-  return itemsize == 1 ? launch<uint8_t>(in, o, N, H, W, sv, bits, s)
-                       : launch<uint16_t>(in, o, N, H, W, sv, bits, s);
+  return itemsize == 1 ? launch_typed<uint8_t>(in, o, N, H, W, sv, bits, s)
+                       : launch_typed<uint16_t>(in, o, N, H, W, sv, bits, s);
 }

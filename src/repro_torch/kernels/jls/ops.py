@@ -3,8 +3,10 @@ and the kernel-assisted encode.
 
 :func:`jls_residuals` launches the CUDA kernel on CUDA tensors and runs the
 plain version (``ref.residuals_ref``) on CPU tensors. Unlike the TPU wrapper
-it pads nothing and builds no shifted ``above`` input: each CUDA thread
-reads its own neighbours and the kernel masks the ragged edge.
+it pads nothing and builds no shifted ``above`` input: the kernel walks
+16-byte chunks down strips of rows (``csrc/residuals.cuh``, shared with
+the fused kernel), keeps the row above in registers and masks the ragged
+edge itself.
 :func:`encode_batch` computes the residuals on a device and entropy-codes
 them on the host, byte-identical to ``codec.encode``.
 """

@@ -6,7 +6,11 @@ Programs come from ``compile_query`` over seeded random predicate trees
 (both packages compile the same program); leaves are seeded random masks
 with up to 8 leaves plus the validity leaf. On the CPU the port runs the
 plain PyTorch version, which is what ``combine_bitmaps`` does for a CPU
-tensor; the CUDA kernel is held against it in ``test_torch_gpu.py``."""
+tensor; the CUDA kernel is held against it in ``test_torch_gpu.py``.
+``schedule_program``, which fits any program into the kernel's launches, is
+held against both on long, deep and Not-rooted programs (``TestSchedule``)."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -20,11 +24,15 @@ from repro.kernels.bitmap.ref import combine_bitmaps_ref, pack_mask_np, unpack_m
 from repro_torch.catalog import query as port_query
 from repro_torch.catalog.columns import DICT_COLUMNS, Dictionary
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.bitmap import cases as bitmap_cases
 from repro_torch.kernels.bitmap.ops import (
     combine_bitmaps,
     combine_bitmaps_torch,
+    combine_scheduled_torch,
     pack_mask,
     popcount_torch,
+    program_depth,
+    schedule_program,
     unpack_mask,
 )
 
@@ -201,3 +209,108 @@ class TestPackMask:
     def test_popcount_of_int32_words(self, words):
         want = sum(bin(w & 0xFFFFFFFF).count("1") for w in words)
         assert int(popcount_torch(torch.tensor(words, dtype=torch.int32))) == want
+
+
+# ------------------------------------------------------------------ scheduler
+def wide_spec(kind, n, seed):
+    """An And/Or of ``n`` Range and In children, as ``compile_query`` gets a
+    cohort query with many predicates."""
+    rng = np.random.default_rng(seed)
+    kids = []
+    for i in range(n):
+        if i % 2:
+            lo = 20150101 + int(rng.integers(0, 4)) * 10000
+            kids.append(("Range", "study_date", lo - 20000, lo + 20000))
+        else:
+            kids.append(("In", "modality", tuple(str(v) for v in rng.choice(_MODALITIES, 4))))
+    return (kind, *kids)
+
+
+def nested_spec(depth):
+    """``depth`` nested levels, And and Or in turn, each a leaf beside the
+    next level: the stack program is right-deep, ``depth + 1`` values deep."""
+    spec = ("Range", "study_date", 20150101, 20181231)
+    for d in range(depth):
+        leaf = ("In", "modality", (_MODALITIES[d % 6], _MODALITIES[(d + 2) % 6]))
+        spec = ("And" if d % 2 else "Or", leaf, spec)
+    return spec
+
+
+def compiled(spec):
+    """(leaf count, program): both packages compile the same program."""
+    port = port_query.compile_query(build(spec, port_query), dicts_for(Dictionary))
+    jax = jax_query.compile_query(build(spec, jax_query), dicts_for(JaxDictionary))
+    assert port.program == jax.program
+    return len(port.leaves), port.program
+
+
+LONG_PROGRAMS = {
+    "and_40": lambda: compiled(wide_spec("And", 40, 1)),
+    "or_40": lambda: compiled(wide_spec("Or", 40, 2)),
+    "and_200": lambda: compiled(wide_spec("And", 200, 3)),
+    "or_200": lambda: compiled(wide_spec("Or", 200, 4)),
+    "nested_40": lambda: compiled(nested_spec(40)),
+    "not_rooted": lambda: compiled(("Not", wide_spec("Or", 40, 5))),
+    "random_5000": lambda: (8, bitmap_cases.random_program(np.random.default_rng(6), 5000, 8)),
+}
+
+
+class TestSchedule:
+    """``schedule_program`` against the JAX package: every schedule, run
+    through the plain version launch by launch, gives the reference's bitmap
+    and count, and no launch is longer than ``max_ops`` or deeper than
+    floor(log2 L) + 1 for its L leaf ops."""
+
+    @pytest.mark.parametrize("max_ops", [16, 128])
+    @pytest.mark.parametrize("name", list(LONG_PROGRAMS))
+    def test_schedule_equals_jax_and_ref(self, name, max_ops):
+        k, program = LONG_PROGRAMS[name]()
+        leaves = leaves_for(np.random.default_rng(len(program)), 1000, k)
+        schedule = schedule_program(program, max_ops, k + 1)
+        # each cut subtree becomes one leaf op of a later launch
+        assert sum(len(p) for p in schedule) == len(program) + len(schedule) - 1
+        for launch in schedule:
+            n_leaves = sum(op[0] == "leaf" for op in launch)
+            assert len(launch) <= max_ops
+            assert program_depth(launch) <= math.floor(math.log2(n_leaves)) + 1
+        assert schedule[-1][-2:] == (("leaf", k), ("and",))  # the validity AND stays last
+        if len(program) <= max_ops:
+            assert len(schedule) == 1
+        want, want_count = combine_bitmaps_ref(leaves, program)
+        jax_bm, jax_count = jax_combine(leaves, program)
+        got, count = combine_scheduled_torch(as_port(leaves), schedule)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+        np.testing.assert_array_equal(np.asarray(jax_bm), want)
+        assert int(count) == want_count == jax_count
+
+    @pytest.mark.parametrize("p", range(len(PROGRAMS)))
+    def test_short_programs_keep_one_launch_and_their_leaf_order(self, p):
+        """``compile_query``'s And/Or chains are left-deep: Sethi-Ullman
+        order leaves them as they are, one launch, the same leaf order."""
+        k, program = PROGRAMS[p]
+        schedule = schedule_program(program, 128, k + 1)
+        assert len(schedule) == 1 and len(schedule[0]) == len(program)
+        leaf_order = [op for op in program if op[0] == "leaf"]
+        if program_depth(program) <= 2:
+            assert schedule[0] == program
+        assert sorted(op for op in schedule[0] if op[0] == "leaf") == sorted(leaf_order)
+
+    def test_nested_program_depth_falls_to_two(self):
+        k, program = compiled(nested_spec(40))
+        assert program_depth(program) == 41
+        assert [program_depth(p) for p in schedule_program(program, 1 << 20, k + 1)] == [2]
+
+    @pytest.mark.parametrize("program,match", [
+        ((("leaf", 0), ("and",)), "empty stack"),
+        ((("leaf", 0), ("leaf", 1)), "2 values left"),
+        ((("leaf", 0), ("xor",)), "unknown opcode"),
+        ((("leaf", 5),), "not one of 2 rows"),
+        ((), "0 values left"),
+    ])
+    def test_malformed_programs_raise(self, program, match):
+        with pytest.raises(ValueError, match=match):
+            schedule_program(program, 128, 2)
+
+    def test_a_launch_takes_at_least_three_ops(self):
+        with pytest.raises(ValueError, match="at least 3"):
+            schedule_program((("leaf", 0),), 2, 1)

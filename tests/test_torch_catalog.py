@@ -87,6 +87,23 @@ QUERIES = {
 }
 
 
+def _nested(depth):
+    spec = ("Range", "study_date", 20150101, 20191231)
+    for d in range(depth):
+        leaf = ("In", "modality", tuple(_MODALITIES[d % 6:d % 6 + 3]))
+        spec = ("And" if d % 2 else "Or", leaf, spec)
+    return spec
+
+
+# long and deep queries (``test_long_and_deep_queries_agree``)
+LONG_QUERIES = {
+    "and_40": ("And", *[("Range", "study_date", 20150101 + 50 * i, 20191231) if i % 2 else
+                        ("In", "modality", tuple(m for m in _MODALITIES if m != _MODALITIES[i % 6]))
+                        for i in range(40)]),
+    "nested_40": _nested(40),
+}
+
+
 def build(spec, q):
     op, *args = spec
     if op in ("And", "Or"):
@@ -121,6 +138,18 @@ class TestCatalogParity:
         sel = port_cat.select(build(q, port_query))
         assert sel.blocks_pruned > 0 and sel.blocks_scanned > 0
         assert_same_selection(sel, jax_cat.select(build(q, jax_query)))
+
+    @pytest.mark.parametrize("name", sorted(LONG_QUERIES))
+    def test_long_and_deep_queries_agree(self, name):
+        """A 40-child And (81 program ops) and a 40-deep And/Or nesting (41
+        values deep as compiled), which the card's bitmap wrapper must
+        schedule (``kernels/bitmap/ops.py::schedule_program``): the CPU
+        selection must equal the JAX catalog's."""
+        jax_cat, port_cat = both(corpus(seed=9))
+        spec = LONG_QUERIES[name]
+        port_sel = port_cat.select(build(spec, port_query))
+        assert_same_selection(port_sel, jax_cat.select(build(spec, jax_query)))
+        assert port_sel.total_instances > 0
 
     @pytest.mark.parametrize("prune", [True, False])
     def test_unpruned_scan_agrees(self, prune):

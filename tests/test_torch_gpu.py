@@ -7,22 +7,29 @@ with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import ctypes
+import math
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.catalog import And, Contains, In, Not, Range, StudyCatalog
+from repro_torch.catalog import And, Contains, In, Not, Or, Range, StudyCatalog
 from repro_torch.core import DeidPipeline, PseudonymService, TrustMode, build_request
 from repro_torch.core.batch import BatchedDeidExecutor
 from repro_torch.detect import DetectorPolicy
 from repro_torch.dicom.generator import StudyGenerator
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.bitmap import cases as bitmap_cases
 from repro_torch.kernels.bitmap.ops import (
+    OPCODES,
     combine_bitmaps,
     combine_bitmaps_torch,
     pack_mask,
     program_limits,
+    schedule_program,
 )
+from repro_torch.kernels.build import bind
 from repro_torch.kernels.bitmap.ref import combine_bitmaps_ref
 from repro_torch.dicom import codec
 from repro_torch.kernels.fused import cases as fused_cases
@@ -269,6 +276,25 @@ def test_jls_kernel_equals_plain_version(rng, cuda, stack, sv):
     assert torch.equal(got, residuals_ref(images, sv, images.element_size() * 8))
 
 
+@pytest.mark.parametrize("dtype", fused_cases.DTYPES)
+@pytest.mark.parametrize("shape", fused_cases.SHAPES)
+@pytest.mark.parametrize("offset", fused_cases.OFFSETS)
+def test_jls_kernel_equals_plain_version_at_chunk_edges(rng, cuda, dtype, shape, offset):
+    """jls runs fused's strip walker without rects: the layouts of
+    ``kernels/fused/cases.py`` (ragged rows and bases off 16 bytes take the
+    pixel path), every sv, and bits below the item size; exact."""
+    N, H, W = shape
+    images = torch.from_numpy(fused_cases.planes(rng, dtype, shape)).to(cuda)[offset:offset + N]
+    bits = images.element_size() * 8
+    before = LAUNCHES["jls"]
+    for sv in fused_cases.SVS:
+        for b in (bits, bits - 3):
+            got = jls_residuals(images, sv=sv, bits=b)
+            assert torch.equal(got, residuals_ref(images, sv, b)), (sv, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES["jls"] - before == 2 * len(fused_cases.SVS)
+
+
 def test_jls_kernel_refuses_what_it_cannot_run(cuda):
     images = torch.zeros((1, 4, 4), dtype=torch.uint16, device=cuda)
     for kw in ({"sv": 0}, {"sv": 8}):
@@ -416,18 +442,80 @@ def test_bitmap_not_rooted_program_never_counts_padding(cuda, n):
 
 
 def test_bitmap_kernel_refuses_programs_it_cannot_run(cuda):
+    """Only malformed programs are refused (``ValueError``), by the wrapper's
+    scheduler and by the C entry point itself; programs longer or deeper
+    than one launch takes run, equal to the plain version."""
     max_ops, max_depth = program_limits()
-    leaves = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
-    too_long = (("leaf", 0),) + (("not",),) * max_ops
-    too_deep = (("leaf", 0),) * (max_depth + 1) + (("and",),) * max_depth
-    for prog in (too_long, too_deep, (("leaf", 2),), (("leaf", 0), ("and",)),
-                 (("leaf", 0), ("leaf", 1)), (("leaf", 0), ("xor",))):
+    leaves = _leaves(np.random.default_rng(2), 1000, 1, cuda)
+    malformed = ((("leaf", 2),), (("leaf", 0), ("and",)), (("leaf", 0), ("leaf", 1)),
+                 (("leaf", 0), ("xor",)))
+    for prog in malformed:
         with pytest.raises(ValueError, match="bitmap"):
             combine_bitmaps(leaves, prog)
-    # the longest program it takes still runs
-    longest = (("leaf", 0),) + (("not",),) * (max_ops - 1)
-    assert torch.equal(combine_bitmaps(leaves, longest)[0],
-                       combine_bitmaps_torch(leaves, longest)[0])
+    fn = bind("bitmap", "bitmap_combine_launch", 5, 3)
+    out = torch.empty(leaves.shape[1], dtype=torch.int32, device=cuda)
+    too_long_for_one = (("leaf", 0),) + (("not",),) * max_ops
+    too_deep_for_one = (("leaf", 0),) * (max_depth + 1) + (("and",),) * max_depth
+    for prog in malformed + (too_long_for_one, too_deep_for_one):
+        ops = (ctypes.c_int * len(prog))(*[OPCODES.get(op[0], -1) for op in prog])
+        args = (ctypes.c_int * len(prog))(*[op[1] if op[0] == "leaf" else 0 for op in prog])
+        rc = fn(leaves.data_ptr(), out.data_ptr(), None, ops, args, 2, leaves.shape[1], len(prog),
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, prog[:3]  # cudaErrorInvalidValue
+    # a launch of max_ops ops holds at most (max_ops + 1) // 2 leaf ops, which
+    # the scheduler's order keeps within the kernel's depth
+    assert math.floor(math.log2((max_ops + 1) // 2)) + 1 <= max_depth
+    for prog in (too_long_for_one, too_deep_for_one, (("leaf", 0),) + (("not",),) * (max_ops - 1)):
+        got, count = combine_bitmaps(leaves, prog)
+        want, want_count = combine_bitmaps_torch(leaves, prog)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and count == int(want_count), len(prog)
+
+
+@pytest.mark.parametrize("n_ops", [65, 1000, 5000])
+@pytest.mark.parametrize("n", [1000, 4097 * 32, 1 << 20])
+def test_bitmap_kernel_takes_long_programs(rng, cuda, n_ops, n):
+    """Programs of any length through the scheduler: one launch up to
+    ``program_limits()`` ops, else one for each cut subtree, scratch rows
+    between them; 16- and 4-byte paths; exact against the plain version and
+    the numpy oracle."""
+    leaves = _leaves(rng, n, 8, cuda)
+    prog = bitmap_cases.random_program(rng, n_ops, 8)
+    max_ops, _ = program_limits()
+    before = LAUNCHES["bitmap"]
+    got, count = combine_bitmaps(leaves, prog)
+    want, want_count = combine_bitmaps_torch(leaves, prog)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bitmap"] - before == len(schedule_program(prog, max_ops, 9))
+    assert (LAUNCHES["bitmap"] - before == 1) == (len(prog) <= max_ops)
+    assert torch.equal(got, want) and count == int(want_count)
+    ref, ref_count = combine_bitmaps_ref(leaves.cpu().numpy().view(np.uint32), prog)
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), ref) and count == ref_count
+
+
+def _nested_query(depth):
+    q = Range("study_date", 20150101, 20190101)
+    for d in range(depth):
+        q = (And if d % 2 else Or)(In("modality", ["CT", "MR", "DX", "US"][d % 4:d % 4 + 2]), q)
+    return q
+
+
+def test_catalog_on_card_answers_long_and_deep_queries(cuda):
+    """A 40-child And and a 40-deep And/Or nesting through
+    ``StudyCatalog.select`` on the card, equal to the oracle."""
+    cat = StudyCatalog(block_rows=64, device=cuda)
+    mods = ["CT", "MR", "DX", "US"]
+    for i in range(40):
+        cat.ingest_rows(f"G{i:03d}", [
+            {"modality": mods[(i + j) % 4], "model": f"M{j % 3}", "study_date": 20150101 + i * 100,
+             "rows": 512, "cols": 512, "nbytes": 1000 + j} for j in range(25)], etag=f"e{i}")
+    wide = And(*[Range("study_date", 20150101 + 10 * i, 20190101) if i % 2 else
+                 In("modality", [m for m in mods if m != mods[i % 4]]) for i in range(40)])
+    for q in (wide, _nested_query(40)):
+        before = LAUNCHES["bitmap"]
+        got, want = cat.select(q), cat.select(q, mode="oracle")
+        assert LAUNCHES["bitmap"] > before
+        assert got == want and got.total_instances > 0
 
 
 def test_catalog_on_card_equals_oracle(rng, cuda):

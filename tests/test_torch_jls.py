@@ -24,6 +24,7 @@ from repro.kernels.jls.ref import residuals_ref as jax_residuals_ref
 
 from repro_torch.dicom import codec
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.fused import cases as fused_cases
 from repro_torch.kernels.fused import ref as fused_ref_mod
 from repro_torch.kernels.fused.ops import fused_encode_batch
 from repro_torch.kernels.jls.ops import encode_batch, jls_residuals
@@ -85,6 +86,24 @@ def test_residuals_edges(rng, shape, dtype):
     the predictor that reads all three neighbours."""
     for sv in range(1, 8):
         _assert_residual_parity(_full_range(rng, shape, dtype), sv, interpret=sv == 4)
+
+
+@pytest.mark.parametrize("sv", fused_cases.SVS)
+@pytest.mark.parametrize("offset", fused_cases.OFFSETS)
+@pytest.mark.parametrize("shape", fused_cases.SHAPES)
+@pytest.mark.parametrize("dtype", fused_cases.DTYPES)
+def test_residuals_equal_jax_on_fused_case_table(dtype, shape, offset, sv):
+    """The layouts the CUDA kernel's strip walker meets (shared with fused):
+    rows that are no 16-byte multiple, a batch cut off a 16-byte boundary,
+    H = 1, W = 1, W = 257; the port's plain path against the JAX kernel in
+    interpret mode."""
+    N = shape[0]
+    rng = np.random.default_rng(sum(shape) * 16 + offset * 8 + sv)
+    imgs = fused_cases.planes(rng, dtype, shape)[offset:offset + N]
+    before = LAUNCHES["jls"]
+    got = jls_residuals(torch.from_numpy(imgs), sv=sv)
+    assert LAUNCHES["jls"] == before
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_jls_residuals(imgs, sv=sv)))
 
 
 @pytest.mark.parametrize("sv", [0, 8])
