@@ -83,7 +83,23 @@ Phases, in order; any failure raises and exits non-zero:
             (g) the operator launcher ``repro_torch.launch.deid_service`` at
             its defaults on the card, plain and ``--chaos``, equal to the
             same runs with ``--device cpu`` (all but the counted plain card
-            run in child processes, the four runs at once).
+            run in child processes, the four runs at once);
+            (i) the paper's Figure 2b suite: every ``tests/features`` file
+            through ``run_feature(device="cuda")``, every scenario passing,
+            equal to ``device="cpu"``, each instance blanked by scrub;
+            (j) the fleet simulator: ``FleetSim`` on the card under traffic
+            (bursty cohorts and a query mix) and every chaos kind, 24
+            studies x 2 images with recompression, unknown devices and the
+            change feed, then 8 x 2 with recompression off, each beside the
+            same run with ``device="cpu"`` in a child process; every default
+            checker green, the event-log and audit digests, metrics, bucket
+            and lake equal to the CPU run's, and the trace too with the
+            executor spans' path labels read as the host path's; prints
+            wall seconds and the share of ``run_study`` in the executor;
+            (k) the scrub farm: ``ScrubFarm()`` over every card on a
+            CT/DX/US batch (``process_datasets``) and
+            ``ElasticFarmController`` over four pool entries naming
+            ``cuda:0``, each equal to ``numpy_blank``.
 4. result — fused and textdetect timed at every shape their wrappers
             counted on the cold and the detector path, and at one block, and
             bitmap at each shape it was counted at on path (e);
@@ -1304,6 +1320,259 @@ def run_launcher_path() -> dict:
     return runs[("card", "plain")]["launches"]
 
 
+# ---------------------------- phase 3: the scenario suite, the fleet, the farm
+ROOT = Path(__file__).resolve().parent
+
+
+def run_scenario_path() -> dict:
+    """Path (i), the paper's Figure 2b suite: every ``tests/features`` file
+    through ``run_feature(device="cuda")`` in a counted window, then with
+    ``device="cpu"``. Every scenario must pass on the card, with the CPU
+    run's results, and each instance is blanked by the scrub kernel."""
+    from repro_torch.core.scenarios import VirtualDicomTree, parse_feature, run_feature
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    features = sorted((ROOT / "tests" / "features").glob("*.feature"))
+    assert features, "no feature files under tests/features"
+
+    def run(device):
+        return {p.name: [(r.scenario, r.passed, r.detail) for r in
+                         run_feature(parse_feature(p.read_text()), VirtualDicomTree(), device=device)]
+                for p in features}
+
+    reset_launches()
+    t0 = time.perf_counter()
+    card = run("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    cpu_wall = time.perf_counter() - t0
+    failed = [(f, r) for f, rs in card.items() for r in rs if not r[1]]
+    assert not failed, f"scenarios failed on the card: {failed}"
+    assert card == cpu, "scenario results on the card differ from device='cpu'"
+    assert launches["scrub"] > 0, "kernel scrub never launched on the scenario path (i)"
+    n = sum(len(rs) for rs in card.values())
+    log(f"scenarios (i): {n} scenarios in {len(features)} feature files pass on the card, equal "
+        f"to device='cpu'; wall s card {wall} cpu {cpu_wall}; launches {json.dumps(launches)}")
+    return launches
+
+
+# path (j): a fleet an operator would call small but real, under every chaos
+# kind, and a smaller one with recompression off (the FleetConfig default),
+# which blanks through the scrub kernel. (j) is cut from 8 images a study to
+# 2: each fetch and store of a study is the at-rest XOR, a Python byte loop
+# over its bytes (PERF.md section 4).
+FLEET_TRAFFIC = dict(n_bursts=3, cohorts_per_burst=2, cohort_size=6)
+FLEET_QUERIES = 6
+FLEET_CHAOS = dict(crash_events=2, straggler_events=1, reingests=2, lease_storms=1,
+                   ruleset_edits=1, pooler_crashes=1, feed_outages=1, feed_faults=1)
+FLEETS = {
+    "j": (dict(seed=7, n_studies=24, images_per_study=2, modality=None, recompress=True,
+               unknown_device_rate=0.25, feed_mutations=8),
+          ("fused", "rice_prepass", "rice_len_rem", "bitmap", "textdetect")),
+    "j-scrub": (dict(seed=7, n_studies=8, images_per_study=2, modality=None, recompress=False,
+                     unknown_device_rate=0.25, feed_mutations=8),
+                ("scrub", "bitmap", "textdetect")),
+}
+FLEET_TIMED = (("pipeline.run_study", "repro_torch.core.pipeline", "DeidPipeline", "run_study"),
+               ("executor.run", "repro_torch.core.batch", "BatchedDeidExecutor", "run"),
+               ("executor.submit_kernel", "repro_torch.core.batch", "BatchedDeidExecutor",
+                "_submit_kernel"),
+               ("executor.collect", "repro_torch.core.batch", "BatchedDeidExecutor",
+                "_collect_chunk"),
+               ("executor.detect", "repro_torch.core.batch", "BatchedDeidExecutor",
+                "detect_row_hits"),
+               # the at-rest XOR of every study read and write, and the checkers
+               ("store.get_study", "repro_torch.storage.object_store", "StudyStore", "get_study"),
+               ("store.put_study", "repro_torch.storage.object_store", "StudyStore", "put_study"),
+               ("report+checkers", "repro_torch.sim.harness", "FleetSim", "_report"))
+
+
+def fleet_run(name: str, device: str, journal_dir: str, timed: bool = False) -> dict:
+    """One ``FleetSim`` run of ``FLEETS[name]`` on ``device``: its report's
+    digests, metrics and violations, digests of the researcher bucket and
+    the result lake, and wall seconds. ``timed`` adds the wall seconds spent
+    in ``run_study`` and in the executor's parts (``FLEET_TIMED``)."""
+    import hashlib
+    import importlib
+
+    from repro_torch.obs.trace import host_path_digest
+    from repro_torch.sim import BurstyTraffic, ChaosSchedule, FleetConfig, FleetSim, QueryMix
+
+    cfg_kw, _ = FLEETS[name]
+    cfg = FleetConfig(**cfg_kw)
+    corpus = [f"SIM{i:04d}" for i in range(cfg.n_studies)]
+    traffic = (BurstyTraffic(**FLEET_TRAFFIC).schedule(corpus, cfg.seed)
+               + QueryMix(n_queries=FLEET_QUERIES).schedule(corpus, cfg.seed))
+    chaos = ChaosSchedule.seeded(cfg.seed, 1800.0, corpus, **FLEET_CHAOS)
+    spent, saved = Counter(), []
+    if timed:
+        for label, module, cls, meth in FLEET_TIMED:
+            owner = getattr(importlib.import_module(module), cls)
+            orig = getattr(owner, meth)
+
+            def wrapped(*a, _orig=orig, _label=label, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*a, **kw)
+                finally:
+                    spent[_label] += time.perf_counter() - t0
+
+            saved.append((owner, meth, orig))
+            setattr(owner, meth, wrapped)
+    try:
+        t0 = time.perf_counter()
+        sim = FleetSim(cfg, traffic, Path(journal_dir) / f"{name}-{device}.jsonl", chaos,
+                       device=device)
+        report = sim.run()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for owner, meth, orig in saved:
+            setattr(owner, meth, orig)
+
+    def digest(items):
+        h = hashlib.sha256()
+        for key, etag in sorted(items):
+            h.update(f"{key} {etag}\n".encode())
+        return h.hexdigest()
+
+    bucket = sim.dest.store
+    lake = sim.lake
+
+    return {"ok": report.ok(), "violations": [f"{v.checker}: {v.detail}" for v in report.violations],
+            "log_digest": report.log_digest, "trace_digest": report.trace_digest,
+            "host_path_trace_digest": host_path_digest(sim.tracer.spans()),
+            "audit_digest": report.audit.get("digest"),
+            "metrics": json.loads(json.dumps(report.metrics)),
+            "bucket_digest": digest((p, bucket.etag(p)) for p in bucket.list("out/")),
+            "lake_digest": digest((k, hashlib.sha256(lake.backend.get_bytes(k)).hexdigest())
+                                  for k in lake.keys()),
+            "spans": len(sim.tracer.spans()), "records": len(sim.log.records),
+            "wall_s": wall, "spent_s": dict(spent)}
+
+
+_FLEET_CHILD = """
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke
+print(json.dumps(chip_smoke.fleet_run(sys.argv[1], "cpu", sys.argv[2])))
+"""
+
+
+def run_fleet_path() -> dict:
+    """Path (j): each fleet of ``FLEETS`` on the card in a counted window,
+    beside the same run with ``device="cpu"`` in a child process started
+    just before it. Every default checker must be green on the card; the
+    event-log and audit digests, the metrics and the bucket and lake
+    digests must equal the CPU run's, and so must the trace digest once the
+    executor spans' path labels are read as the host path's
+    (``host_path_digest``): the card's spans say "fused" where the CPU's say
+    "host", and nothing else differs. Returns the launches by fleet."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fleet-") as tmp:
+        for name, (cfg_kw, kernels) in FLEETS.items():
+            child = subprocess.Popen([sys.executable, "-c", _FLEET_CHILD, name, tmp], cwd=ROOT,
+                                     stdout=subprocess.PIPE, text=True)
+            try:
+                reset_launches()
+                card = fleet_run(name, "cuda", tmp, timed=True)
+                launches = dict(LAUNCHES)
+                stdout, _ = child.communicate(timeout=1200)
+                if child.returncode != 0:
+                    raise RuntimeError(f"fleet ({name}) on the CPU failed (rc {child.returncode})")
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+            cpu = json.loads(stdout.strip().splitlines()[-1])
+            assert card["ok"], f"fleet ({name}) on the card: {card['violations']}"
+            assert cpu["ok"], f"fleet ({name}) on the CPU: {cpu['violations']}"
+            for key in ("log_digest", "audit_digest", "metrics", "bucket_digest", "lake_digest",
+                        "spans", "records"):
+                assert card[key] == cpu[key], f"fleet ({name}): {key} differs from device='cpu'"
+            assert cpu["host_path_trace_digest"] == cpu["trace_digest"]
+            assert card["host_path_trace_digest"] == cpu["trace_digest"], \
+                f"fleet ({name}): trace differs from device='cpu' beyond the path labels"
+            for k in kernels:
+                assert launches[k] > 0, f"kernel {k} never launched on the fleet path ({name})"
+            spent = card["spent_s"]
+            share = {k: v / spent["pipeline.run_study"] for k, v in spent.items()
+                     if k.startswith("executor.")}
+            log(f"fleet ({name}) {json.dumps(cfg_kw)}: green under every default checker on the "
+                f"card; log, audit, bucket and lake digests, metrics and host-path trace digest "
+                f"equal to device='cpu' (card trace digest {card['trace_digest'][:16]}, cpu "
+                f"{cpu['trace_digest'][:16]}); {card['records']} log records, {card['spans']} "
+                f"spans; wall s card {card['wall_s']} cpu {cpu['wall_s']} (the two runs overlap); "
+                f"card wall s in (inclusive; run_study also runs inside the checkers' cold "
+                f"replays) {json.dumps(spent)}, the executor's share of run_study "
+                f"{json.dumps(share)}; "
+                f"metrics {json.dumps(card['metrics'])}; launches {json.dumps(launches)}")
+            out[name] = launches
+    return out
+
+
+def run_farm_path() -> dict:
+    """Path (k): ``ScrubFarm()`` over every CUDA device, ``process_datasets``
+    on a CT/DX/US batch, and ``ElasticFarmController`` over a pool of four
+    entries naming ``cuda:0`` (resize to 4, to 2, fail entry 1, reconcile),
+    each in a counted window and equal to ``numpy_blank`` per image. The
+    elastic run checks the sharding and rebuild logic with the kernel; with
+    one card it says nothing of several."""
+    from repro_torch.core import DeidPipeline
+    from repro_torch.core.scrub import numpy_blank
+    from repro_torch.dicom.generator import StudyGenerator
+    from repro_torch.distributed import ElasticFarmController, ScrubFarm
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    gen = StudyGenerator(seed=11)
+    studies = [gen.gen_study("FARM-CT", modality="CT", n_images=13),
+               gen.gen_study("FARM-DX", modality="DX", n_images=3),
+               gen.gen_study("FARM-US", modality="US", n_images=5)]
+    datasets = [ds.copy() for s in studies for ds in s.datasets if ds.pixels is not None]
+    before = [ds.pixels.copy() for ds in datasets]
+    rects_for = DeidPipeline(recompress=False, device="cpu").scrub.rects_for
+    reset_launches()
+    t0 = time.perf_counter()
+    farm = ScrubFarm()
+    applied = farm.process_datasets(datasets, rects_for)
+    wall = time.perf_counter() - t0
+    farm_launches = dict(LAUNCHES)
+    assert applied and farm_launches["scrub"] > 0, "kernel scrub never launched on the farm path"
+    for i, ds in enumerate(datasets):
+        want = numpy_blank(before[i], applied[i]) if i in applied else before[i]
+        assert np.array_equal(ds.pixels, want), f"farm: dataset {i} differs from numpy_blank"
+
+    ct = np.stack(before[:13])
+    rl = [list(rects_for(ds)) for ds in studies[0].datasets[:13]]
+    ref = np.stack([numpy_blank(ct[i], rl[i]) for i in range(len(rl))])
+    reset_launches()
+    c = ElasticFarmController([torch.device("cuda:0")] * 4)
+    steps = []
+    for step in ("reconcile 4", "reconcile 2", "mark_failed 1", "reconcile 2"):
+        verb, arg = step.split()
+        if verb == "mark_failed":
+            c.mark_failed(int(arg))
+            continue
+        f = c.reconcile(int(arg))
+        assert np.array_equal(f.scrub_batch(ct, rl), ref), f"elastic farm after {step}"
+        steps.append((step, c.active, list(c.members)))
+    elastic_launches = dict(LAUNCHES)
+    assert [s[1:] for s in steps] == [(4, [0, 1, 2, 3]), (2, [0, 1]), (2, [0, 2])], steps
+    assert [e.kind for e in c.events] == ["resize", "resize", "device-failure", "resize"]
+    assert elastic_launches["scrub"] > 0
+    log(f"farm (k): ScrubFarm over {farm.n} CUDA device(s), {len(datasets)} CT/DX/US instances in "
+        f"{len(applied)} scrubbed, equal to numpy_blank; wall s {wall}; launches "
+        f"{json.dumps(farm_launches)}; elastic over 4 entries naming cuda:0 {steps}, equal to "
+        f"numpy_blank at each step, launches {json.dumps(elastic_launches)}")
+    return {"farm": farm_launches, "elastic": elastic_launches}
+
+
 # ------------------------------------------------- phase 3: serving paths
 _MODALITIES = ["CT", "MR", "DX", "US", "CR", "PT"]
 _MAKES = ["GE Medical", "Siemens", "Philips", "Canon"]
@@ -1890,6 +2159,11 @@ def main() -> None:
 
     # the operator launcher (g) at its defaults
     run_launcher_path()
+
+    # the scenario suite (i), the fleet simulator (j) and the scrub farm (k)
+    run_scenario_path()
+    run_fleet_path()
+    run_farm_path()
 
     # launches x (ms - bound): each kernel at each shape its wrapper counted
     # on the path its launches are read from (scrub, phi_detect and jls timed

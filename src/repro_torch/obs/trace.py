@@ -116,6 +116,33 @@ def _canonical(obj):
     return obj
 
 
+# The executor's spans name the path that ran (``core/batch.py``): on the
+# card the kernels, on the CPU the host two-pass and the numpy detector.
+# Each card label beside the host label of the same work.
+HOST_PATH_LABELS = {
+    ("kernel.dispatch", "fused"): "host",
+    ("kernel.entropy_code", "device_plan"): "host_encode",
+    ("kernel.entropy_code", "device_res"): "host_encode",
+    ("kernel.detect_dispatch", "textdetect"): "oracle",
+}
+
+
+def host_path_digest(spans) -> str:
+    """:meth:`Tracer.digest` of ``spans`` as the host path records them:
+    each executor span's ``path`` label replaced by the host path's. A run
+    on the card and the same run on the CPU differ in those labels and
+    nowhere else, so this digest of the one equals the other's digest."""
+    h = hashlib.sha256()
+    for s in spans:
+        d = s.to_dict()
+        label = HOST_PATH_LABELS.get((s.name, s.attrs.get("path")))
+        if label is not None:
+            d["attrs"] = {**s.attrs, "path": label}
+        h.update(json.dumps(_canonical(d), sort_keys=True, separators=(",", ":")).encode())
+        h.update(b"\n")
+    return h.hexdigest()
+
+
 class Tracer:
     """Clock-injected span recorder with a LIFO active-span stack."""
 

@@ -531,3 +531,110 @@ def test_catalog_on_card_equals_oracle(rng, cuda):
         got, want = cat.select(q), cat.select(q, mode="oracle")
         assert LAUNCHES["bitmap"] == before + 1
         assert got == want and got.total_instances > 0
+
+
+# ------------------------------------- the scenario suite, the fleet, the farm
+def test_feature_files_on_card_equal_cpu(cuda):
+    from pathlib import Path
+
+    from repro_torch.core.scenarios import VirtualDicomTree, parse_feature, run_feature
+
+    for path in sorted((Path(__file__).parent / "features").glob("*.feature")):
+        feature = parse_feature(path.read_text())
+        before = LAUNCHES["scrub"]
+        card = run_feature(feature, VirtualDicomTree(), device=cuda)
+        assert LAUNCHES["scrub"] > before
+        cpu = run_feature(feature, VirtualDicomTree(), device="cpu")
+        assert all(r.passed for r in card), [(r.scenario, r.detail) for r in card]
+        assert [(r.scenario, r.passed, r.detail) for r in card] == [
+            (r.scenario, r.passed, r.detail) for r in cpu]
+
+
+def _fleet(device, path):
+    from repro_torch.sim import BurstyTraffic, ChaosSchedule, FleetConfig, FleetSim, QueryMix
+
+    corpus = [f"SIM{i:04d}" for i in range(4)]
+    cfg = FleetConfig(seed=7, n_studies=4, images_per_study=1, modality=None, recompress=True,
+                      unknown_device_rate=0.25, feed_mutations=4)
+    traffic = (BurstyTraffic(n_bursts=2, cohorts_per_burst=2, cohort_size=2).schedule(corpus, 7)
+               + QueryMix(n_queries=3).schedule(corpus, 7))
+    chaos = ChaosSchedule.seeded(7, 1800.0, corpus, crash_events=2, straggler_events=1,
+                                 reingests=2, lease_storms=1, ruleset_edits=1, pooler_crashes=1,
+                                 feed_outages=1, feed_faults=1)
+    sim = FleetSim(cfg, traffic, path, chaos, device=device)
+    return sim, sim.run()
+
+
+def test_fleet_on_card_equals_cpu(cuda, tmp_path):
+    """A short fleet run on the card: green, and its event-log and audit
+    digests and metrics equal the same run on the CPU; so does its trace
+    digest, once the executor spans' path labels read as the host path's."""
+    from repro_torch.obs.trace import host_path_digest
+
+    before = dict(LAUNCHES)
+    card_sim, card = _fleet(cuda, tmp_path / "card.jsonl")
+    launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    cpu_sim, cpu = _fleet("cpu", tmp_path / "cpu.jsonl")
+    assert card.ok(), [v.detail for v in card.violations]
+    assert (card.log_digest, card.audit["digest"], card.metrics) == (
+        cpu.log_digest, cpu.audit["digest"], cpu.metrics)
+    assert host_path_digest(card_sim.tracer.spans()) == cpu.trace_digest
+    assert host_path_digest(cpu_sim.tracer.spans()) == cpu.trace_digest
+    for k in ("fused", "rice_prepass", "rice_len_rem", "bitmap"):
+        assert launched[k] > 0, k
+    assert (launched["textdetect"] > 0) == (card.metrics["detector_runs"] > 0)
+
+
+def test_scrub_farm_over_every_card_equals_numpy_blank(rng, cuda):
+    from repro_torch.core.scrub import numpy_blank
+    from repro_torch.distributed import ScrubFarm
+
+    farm = ScrubFarm()
+    assert farm.n == torch.cuda.device_count()
+    for n in (1, 7, 3 * farm.n + 1):
+        imgs = (rng.random((n, 64, 128)) * 4000).astype(np.uint16)
+        rl = [[(0, 0, 128, 8), (int(rng.integers(100)), int(rng.integers(50)), 20, 10)]
+              for _ in range(n)]
+        before = LAUNCHES["scrub"]
+        out = farm.scrub_batch(imgs, rl)
+        assert LAUNCHES["scrub"] == before + farm.n
+        assert np.array_equal(out, np.stack([numpy_blank(imgs[i], rl[i]) for i in range(n)]))
+    gen = StudyGenerator(seed=11)
+    datasets = [ds for m in ("CT", "DX", "US") for ds in gen.gen_study(f"F-{m}", modality=m,
+                                                                        n_images=2).datasets
+                if ds.pixels is not None]
+    raw = [ds.pixels.copy() for ds in datasets]
+    applied = farm.process_datasets(datasets, DeidPipeline(recompress=False, device="cpu").scrub.rects_for)
+    assert applied
+    for i, ds in enumerate(datasets):
+        assert np.array_equal(ds.pixels, numpy_blank(raw[i], applied[i]) if i in applied else raw[i])
+
+
+def test_elastic_farm_over_every_card_equals_numpy_blank(rng, cuda):
+    """The elastic controller over the host's cards: the farm on all of
+    them, then rebuilt around a failed one, each equal to numpy_blank."""
+    from repro_torch.core.scrub import numpy_blank
+    from repro_torch.distributed import ElasticFarmController
+
+    c = ElasticFarmController()
+    n = len(c.pool)
+    assert n == torch.cuda.device_count()
+    imgs = (rng.random((2 * n + 3, 64, 128)) * 4000).astype(np.uint16)
+    rl = [[(0, 0, 128, 8), (int(rng.integers(100)), int(rng.integers(50)), 20, 10)]
+          for _ in range(len(imgs))]
+    ref = np.stack([numpy_blank(imgs[i], rl[i]) for i in range(len(imgs))])
+    assert np.array_equal(c.reconcile(n).scrub_batch(imgs, rl), ref)
+    assert c.active == n
+    c.mark_failed(n - 1)
+    assert c.active == max(n - 1, 1)
+    assert np.array_equal(c.reconcile(n).scrub_batch(imgs, rl), ref)
+
+
+def test_scrub_farm_default_raises_without_cuda(monkeypatch):
+    from repro_torch.distributed import ElasticFarmController, ScrubFarm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ScrubFarm()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ElasticFarmController()

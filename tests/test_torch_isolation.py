@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
 neither JAX nor any module of the JAX package ``repro``, no source of the
-port, ``chip_smoke.py`` or ``kernel_ab.py`` imports them, and the default device is the card
-(an error without CUDA), never a silent CPU fallback."""
+port, ``chip_smoke.py``, ``kernel_ab.py`` or an example twin
+(``examples/*_torch.py``) imports them, not even inside a function, and
+the default device is the card (an error without CUDA), never a silent CPU
+fallback."""
 import pkgutil
 import re
 import subprocess
@@ -33,7 +35,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"},
     )
     n_modules, bad = out.stdout.split("\n")[:2]
-    assert int(n_modules) >= 86
+    assert int(n_modules) >= 95
     assert bad == ""
 
 
@@ -43,7 +45,8 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
-                                      ROOT / "kernel_ab.py"]))
+                                      ROOT / "kernel_ab.py",
+                                      *(ROOT / "examples").glob("*_torch.py")]))
 def test_no_source_imports_jax_or_repro(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.findall(text), path
@@ -54,6 +57,11 @@ def test_every_kernel_source_names_the_tpu_kernel_it_replaces():
                "bitmap.cu", "jls.cu"):
         text = (PORT / "csrc" / cu).read_text()
         assert "Replaces" in text and "src/repro/kernels/" in text and "Bound" in text
+
+
+def test_example_twins_are_scanned():
+    twins = sorted(p.name for p in (ROOT / "examples").glob("*_torch.py"))
+    assert twins == ["deid_at_scale_torch.py", "quickstart_torch.py"]
 
 
 def test_resolve_device():
@@ -94,5 +102,8 @@ def test_package_lists_its_modules():
                    "repro_torch.obs.health", "repro_torch.audit.report",
                    "repro_torch.launch.deid_service", "repro_torch.sim.events",
                    "repro_torch.ingest.checkpoint", "repro_torch.ingest.feed",
-                   "repro_torch.ingest.pooler"):
+                   "repro_torch.ingest.pooler", "repro_torch.core.scenarios",
+                   "repro_torch.sim.traffic", "repro_torch.sim.chaos",
+                   "repro_torch.sim.invariants", "repro_torch.sim.harness",
+                   "repro_torch.distributed.scrub_farm", "repro_torch.distributed.elastic"):
         assert needed in names
