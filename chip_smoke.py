@@ -99,7 +99,20 @@ Phases, in order; any failure raises and exits non-zero:
             (k) the scrub farm: ``ScrubFarm()`` over every card on a
             CT/DX/US batch (``process_datasets``) and
             ``ElasticFarmController`` over four pool entries naming
-            ``cuda:0``, each equal to ``numpy_blank``.
+            ``cuda:0``, each equal to ``numpy_blank``;
+            (l) LM serving, plain PyTorch (no kernel of the port; the launch
+            counts must not move): qwen2-0.5b at its full width and depth in
+            bf16 on the card (``build_model`` from generator seed 0), 8
+            requests of 64-512 prompt tokens, 32 greedy new tokens each,
+            through ``ServeEngine``; prints prefill ms, decode ms a step,
+            tokens/s and peak memory beside their bounds and the card line;
+            the same architecture in f32 built on the CPU and copied to the
+            card, prefill + 4 decode steps of 2 x 64 tokens (logits within
+            1e-3, greedy tokens equal); every family reduced, card against
+            CPU (dense, sliding window, two MoE, SSM, hybrid served, greedy
+            tokens equal; the VLM and the encoder prefilled, logits within
+            1e-4); falcon-mamba served at B == P. (l) runs after phase 4's
+            timings, last before the result lines.
 4. result — fused and textdetect timed at every shape their wrappers
             counted on the cold and the detector path, and at one block, and
             bitmap at each shape it was counted at on path (e);
@@ -1573,6 +1586,259 @@ def run_farm_path() -> dict:
     return {"farm": farm_launches, "elastic": elastic_launches}
 
 
+# ------------------------------------------------- phase 3: LM serving (l)
+# path (l): qwen2-0.5b at its full width and depth (24 layers, d 896, 14/2
+# heads, vocab 151936), bf16, weights drawn from seed 0 on the card; 8
+# requests, prompts of 64-512 tokens from the seed, 32 greedy new tokens each
+LM_ARCH = "qwen2-0.5b"
+LM_REQUESTS = 8
+LM_PROMPT_RANGE = (64, 512)
+LM_MAX_NEW = 32
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor rate (data sheet)
+# card against CPU, every family reduced: dense, sliding window, MoE, SSM,
+# hybrid through ServeEngine; the VLM and the encoder through prefill
+LM_SERVED = ("qwen2-0.5b", "h2o-danube-1.8b", "mixtral-8x22b", "olmoe-1b-7b",
+             "falcon-mamba-7b", "zamba2-2.7b")
+LM_PREFILLED = ("llava-next-34b", "hubert-xlarge")
+LM_REDUCED_TOL = dict(atol=1e-4, rtol=1e-4)  # f32 activations, TF32 off (PyTorch's default)
+LM_FULL_TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+def _lm_engine(model, prompts, max_new, max_batch):
+    from repro_torch.serving import Request, ServeEngine
+
+    eng = ServeEngine(model, max_batch=max_batch)
+    for i, (prompt, m) in enumerate(zip(prompts, max_new)):
+        eng.submit(Request(f"r{i}", prompt, max_new_tokens=m))
+    return eng
+
+
+def _lm_timed_serve(model, prompts, max_new) -> dict:
+    """One ``ServeEngine.run`` with the model's prefill and decode steps each
+    timed on the host clock between two ``torch.cuda.synchronize()``."""
+    spent = {"prefill": [], "decode": []}
+    eng = _lm_engine(model, prompts, [max_new] * len(prompts), len(prompts))
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    model.prefill, model.decode_step = timed("prefill", model.prefill), timed("decode", model.decode_step)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = eng.run()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.prefill, model.decode_step
+    return {"tokens": [r.tokens for r in results], "wall_s": wall, **spent}
+
+
+def _lm_trace(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CUPTI): its wall time on
+    the host clock (synchronized; the profiler's own cost included), the
+    card's busy time (the union of its kernel, copy and fill intervals), the
+    idle share that leaves, the kernels launched, and the six ops with the
+    most host self time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-lm-") as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / wall_us if spans else None,
+            "kernels": sum(1 for e in events if e.get("cat") == "kernel"),
+            "host_self_ms_top": [(e.key, e.count, e.self_cpu_time_total / 1e3) for e in top]}
+
+
+def _lm_full_width_bf16() -> dict:
+    """(l) 1: qwen2-0.5b at full width in bf16 on the card, served; times
+    against their bounds."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda:0", generator=torch.Generator("cuda:0").manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size) == (24, 896, 14, 2, 151936)
+    assert n_params == cfg.param_count() and model.layers.attn.wq.dtype == torch.bfloat16
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LM_PROMPT_RANGE[0], LM_PROMPT_RANGE[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+    P = int(lens.max())
+    _lm_timed_serve(model, prompts, 4)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.reset_peak_memory_stats()
+    run = _lm_timed_serve(model, prompts, LM_MAX_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    again = _lm_timed_serve(model, prompts, LM_MAX_NEW)
+    assert run["tokens"] == again["tokens"], "greedy serving on the card is not deterministic"
+    assert all(len(t) == LM_MAX_NEW and all(0 <= x < cfg.vocab_size for x in t) for t in run["tokens"])
+    assert len(run["prefill"]) == 1 and len(run["decode"]) == LM_MAX_NEW - 1
+
+    # where a step's time goes: the prefill and one decode step of the same
+    # batch, traced
+    toks = torch.zeros((LM_REQUESTS, P), dtype=torch.int64)
+    for i, prompt in enumerate(prompts):
+        toks[i, P - len(prompt):] = torch.tensor(prompt)
+    held = {}
+    trace_prefill = _lm_trace(lambda: held.update(zip(("logits", "cache"), model.prefill({"tokens": toks}))))
+    cache = ServeEngine._grow_cache(held["cache"], P, P + 2)
+    first = held["logits"].argmax(-1)
+    model.decode_step(first, cache, P)
+    trace_decode = _lm_trace(lambda: model.decode_step(first, cache, P + 1))
+
+    # bounds: prefill 2 x params x prompt tokens (the B x P padded tokens it
+    # computes) at the dense bf16 rate; a decode step reads every weight and
+    # the K/V of the positions up to its own once
+    B, KV, hd, L = LM_REQUESTS, cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    prefill_bound_ms = 2 * n_params * B * P / BF16_OPS_PER_S * 1e3
+    kv_bytes = [2 * L * B * (P + s) * KV * hd * 2 for s in range(1, LM_MAX_NEW)]
+    decode_bound_ms = [(weight_bytes + b) / HBM_BYTES_PER_S * 1e3 for b in kv_bytes]
+    new_tokens = sum(len(t) for t in run["tokens"])
+    out = {
+        "arch": LM_ARCH, "params": n_params, "weight_bytes": weight_bytes, "build_s": build_s,
+        "requests": B, "prompt_lens": [int(n) for n in lens], "P": P, "max_new": LM_MAX_NEW,
+        "prefill_ms": run["prefill"][0] * 1e3, "prefill_ms_again": again["prefill"][0] * 1e3,
+        "prefill_bound_ms": prefill_bound_ms,
+        "decode_ms_per_step": statistics.median(run["decode"]) * 1e3,
+        "decode_ms_per_step_again": statistics.median(again["decode"]) * 1e3,
+        "decode_ms_min": min(run["decode"]) * 1e3, "decode_ms_max": max(run["decode"]) * 1e3,
+        "decode_bound_ms_per_step": statistics.median(decode_bound_ms),
+        "serve_wall_s": run["wall_s"], "new_tokens": new_tokens,
+        "tokens_per_s": new_tokens / run["wall_s"],
+        "peak_bytes": peak, "trace_prefill": trace_prefill, "trace_decode_step": trace_decode,
+        "card": card_line(),
+    }
+    out["prefill_pct_of_bound"] = 100 * prefill_bound_ms / out["prefill_ms"]
+    out["decode_pct_of_bound"] = 100 * out["decode_bound_ms_per_step"] / out["decode_ms_per_step"]
+    return out
+
+
+def _lm_full_width_f32() -> dict:
+    """(l) 2: the same architecture under dtype="float32", the weights built
+    on the CPU and copied to the card; prefill + 4 greedy decode steps of 2
+    prompts of 64 tokens on both."""
+    import copy
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), dtype="float32")
+    cpu = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(1))
+    card = copy.deepcopy(cpu).to("cuda:0")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 64))
+    errs, toks = [], []
+    (lc, cc), (lg, cg) = cpu.prefill({"tokens": tokens}), card.prefill({"tokens": tokens})
+    cc, cg = ServeEngine._grow_cache(cc, 64, 68), ServeEngine._grow_cache(cg, 64, 68)
+    for step in range(5):
+        got, want = lg.cpu().numpy(), lc.numpy()
+        np.testing.assert_allclose(got, want, **LM_FULL_TOL, err_msg=f"full-width f32, step {step}")
+        errs.append(float(np.abs(got - want).max()))
+        tok_g, tok_c = got.argmax(-1), want.argmax(-1)
+        assert np.array_equal(tok_g, tok_c), f"full-width f32 greedy tokens differ at step {step}"
+        toks.append(tok_c.tolist())
+        if step < 4:
+            lc, cc = cpu.decode_step(tok_c, cc, 64 + step)
+            lg, cg = card.decode_step(tok_c, cg, 64 + step)
+    return {"max_abs_err": errs, "tokens": toks}
+
+
+def _lm_reduced_families() -> dict:
+    """(l) 3 and 4: every family reduced, card against CPU on the same
+    weights; then falcon-mamba with B == P."""
+    import copy
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import build_model
+
+    out = {}
+    for arch in LM_SERVED + LM_PREFILLED:
+        cfg = get_arch(arch).reduced()
+        cpu = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(0))
+        card = copy.deepcopy(cpu).to("cuda:0")
+        rng = np.random.default_rng(2)
+        if cfg.family == "encoder":
+            batch = {"frame_embeds": rng.standard_normal((2, 32, cfg.d_model)).astype(np.float32)}
+        elif cfg.family == "vlm":
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16)),
+                     "patch_embeds": rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32)}
+        else:
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 32))}
+        got, want = card.prefill(batch)[0].cpu().numpy(), cpu.prefill(batch)[0].numpy()
+        np.testing.assert_allclose(got, want, **LM_REDUCED_TOL, err_msg=f"{arch} prefill")
+        row = {"prefill_max_abs_err": float(np.abs(got - want).max())}
+        if arch in LM_SERVED:
+            prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (64, 17, 40, 33, 64, 8)]
+            max_new = [12, 12, 5, 12, 7, 12]
+            t_card = [r.tokens for r in _lm_engine(card, prompts, max_new, 3).run()]
+            t_cpu = [r.tokens for r in _lm_engine(cpu, prompts, max_new, 3).run()]
+            assert t_card == t_cpu, f"{arch}: greedy tokens on the card differ from the CPU"
+            row["tokens"] = sum(len(t) for t in t_card)
+        out[arch] = row
+
+    # the cache growth the reference gets wrong: B == P = 4 on falcon-mamba
+    cfg = get_arch("falcon-mamba-7b").reduced()
+    cpu = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to("cuda:0")
+    prompts = [[1, 2, 3, 4], [5, 6, 7, 8], [9, 10, 11, 12], [13, 14, 15, 16]]
+    t_card = [r.tokens for r in _lm_engine(card, prompts, [3] * 4, 4).run()]
+    assert t_card == [r.tokens for r in _lm_engine(cpu, prompts, [3] * 4, 2).run()], \
+        "falcon-mamba at B == P on the card differs from the CPU at B != P"
+    out["falcon-mamba-7b B == P"] = {"tokens": t_card}
+    return out
+
+
+def run_lm_path() -> dict:
+    """Path (l), LM serving: qwen2-0.5b at full width in bf16 on the card
+    (times against bounds), the same architecture in f32 card against CPU,
+    every family reduced card against CPU, and falcon-mamba at B == P. It
+    launches none of the port's kernels (plain PyTorch, like the reference's
+    plain jnp): the launch counts must not move."""
+    from repro_torch.kernels import LAUNCHES
+
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    bf16 = _lm_full_width_bf16()
+    log(f"lm serving (l), {bf16['arch']} full width bf16 on the card: {json.dumps(bf16)}")
+    f32 = _lm_full_width_f32()
+    log(f"lm serving (l), {LM_ARCH} full width f32, card against CPU (atol/rtol 1e-3): "
+        f"last-token logits max abs err by step {f32['max_abs_err']}, greedy tokens equal {f32['tokens']}")
+    fam = _lm_reduced_families()
+    log(f"lm serving (l), reduced families, card against CPU (atol/rtol 1e-4; greedy tokens "
+        f"equal): {json.dumps(fam)}")
+    assert dict(LAUNCHES) == before, f"path (l) launched port kernels: {before} -> {dict(LAUNCHES)}"
+    log(f"lm serving (l): {time.perf_counter() - t0:.1f} s; kernel launches unchanged")
+    return {"bf16": bf16, "f32": f32, "families": fam}
+
+
 # ------------------------------------------------- phase 3: serving paths
 _MODALITIES = ["CT", "MR", "DX", "US", "CR", "PT"]
 _MAKES = ["GE Medical", "Siemens", "Philips", "Canon"]
@@ -2200,6 +2466,12 @@ def main() -> None:
     log("launches x (ms - bound): " + json.dumps(
         {name: round(row["gap_ms"], 6) for name, row in sorted(rows.items(),
                                                                 key=lambda kv: -kv[1]["gap_ms"])}))
+
+    # LM serving (l): qwen2-0.5b at full width, and every family reduced.
+    # It runs after every kernel timing: timed after (l) and its
+    # torch.profiler traces, textdetect's and bitmap's event times were 3-4x
+    # those timed without it, fused's unchanged
+    run_lm_path()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

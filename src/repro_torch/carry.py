@@ -1,21 +1,26 @@
-"""Carry studies across from plain Python and numpy values.
+"""Carry studies and model weights across from plain Python and numpy values.
 
-The system has no weights: its state is the study (tags, private tags,
-pixels) and the script texts, which are the same strings in every
-implementation. :func:`study_to_plain` reads any object with the
+The de-identification system has no weights: its state is the study (tags,
+private tags, pixels) and the script texts, which are the same strings in
+every implementation. :func:`study_to_plain` reads any object with the
 ``SyntheticStudy``/``DicomDataset`` attribute names into dicts, tuples and
 numpy arrays, and :func:`study_from_plain` builds this package's objects
 from them, so a study made elsewhere can be de-identified here.
+
+The LM stack's weights cross as a nested dict of numpy arrays
+(:func:`model_params_from_numpy`), keyed as the model's parameter tree.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.dicom.dataset import DicomDataset
 from repro_torch.dicom.devices import DeviceKey
 from repro_torch.dicom.generator import SyntheticStudy
+from repro_torch.models.spec import tree_items
 
 
 def dataset_from_plain(
@@ -74,3 +79,34 @@ def study_from_plain(plain: Dict[str, Any]) -> SyntheticStudy:
         datasets=[dataset_from_plain(**d) for d in plain["datasets"]],
         phi_rects={k: [tuple(r) for r in v] for k, v in plain.get("phi_rects", {}).items()},
     )
+
+
+def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """numpy (bfloat16 by its dtype name, as ml_dtypes spells it) -> tensor."""
+    arr = np.array(arr, copy=True)  # writable, contiguous, owned by the tensor
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def model_params_from_numpy(model, tree: Dict[str, Any]) -> None:
+    """Load a nested dict of numpy arrays into ``model``'s parameters (in
+    place, on the model's device). Every dotted path, shape and dtype must
+    match the model's: a missing, extra or mismatched leaf raises
+    ``ValueError`` and nothing is loaded."""
+    params = dict(model.named_parameters())
+    given = dict(tree_items(tree))
+    if set(params) != set(given):
+        raise ValueError(f"parameter paths differ: missing {sorted(set(params) - set(given))}, "
+                         f"unknown {sorted(set(given) - set(params))}")
+    loaded = {}
+    for path, param in params.items():
+        arr = np.asarray(given[path])
+        if tuple(arr.shape) != tuple(param.shape):
+            raise ValueError(f"{path}: shape {tuple(arr.shape)} != {tuple(param.shape)}")
+        if arr.dtype.name != str(param.dtype).removeprefix("torch."):
+            raise ValueError(f"{path}: dtype {arr.dtype.name} != {param.dtype}")
+        loaded[path] = _tensor_from_numpy(arr)
+    with torch.no_grad():
+        for path, param in params.items():
+            param.copy_(loaded[path])

@@ -1,0 +1,21 @@
+"""qwen1.5-110b — dense, GQA kv=8, QKV bias. [hf:Qwen/Qwen1.5-110B; hf]"""
+from repro_torch.config.model import ModelConfig
+from repro_torch.config.registry import register_arch
+
+
+@register_arch("qwen1.5-110b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen1.5-110b",
+        family="dense",
+        n_layers=80,
+        d_model=8192,
+        n_heads=64,
+        n_kv_heads=8,
+        d_ff=49152,
+        vocab_size=152064,
+        head_dim=128,
+        qkv_bias=True,
+        rope_theta=1e6,
+        source="hf:Qwen/Qwen1.5-110B; hf",
+    )

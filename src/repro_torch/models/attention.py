@@ -1,0 +1,217 @@
+"""GQA attention: KV-chunked online-softmax prefill + cached decode.
+
+The reference's formulation, kept as written:
+
+* **Chunked online-softmax attention**: the O(S^2) logits tensor is never
+  materialized. Query chunks and, for each, the key chunks it sees are
+  Python loops; for causal masks the loop is triangular (fully masked
+  tiles are never computed) and sliding windows bound the key-chunk range.
+* **Grouped GQA einsums**: Q is reshaped to (B, S, KV, G, hd) and contracted
+  against (B, S, KV, hd) K/V, which are never repeated to n_heads.
+* **Score/probability precision**: scores and softmax statistics are f32
+  (the operands are widened to f32 first, as the reference asks of its
+  einsums with ``preferred_element_type``); the post-exp probabilities are
+  rounded to ``p_dtype`` (bf16 in bf16 configs) before the PV product.
+
+``F.scaled_dot_product_attention`` is not used: the bf16-probability
+numerics are part of the reference.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, H, hd). Oracle/A-B path only."""
+    KV = k.shape[2]
+    if KV == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // KV, dim=2)
+
+
+def _chunk(x: torch.Tensor, size: int) -> torch.Tensor:
+    """(B, S, ...) -> (S/size, B, size, ...)."""
+    B, S = x.shape[:2]
+    return x.reshape((B, S // size, size) + tuple(x.shape[2:])).transpose(0, 1)
+
+
+def _k_range(qi: int, nq: int, chunk: int, causal: bool, window: int) -> Tuple[int, int]:
+    hi = (qi + 1) if causal else nq
+    lo = max(0, (qi * chunk - window) // chunk) if window else 0
+    return lo, hi
+
+
+def _tile_mask(qi: int, ki: int, chunk: int, causal: bool, window: int,
+               rows: torch.Tensor) -> Optional[torch.Tensor]:
+    """Keep-mask of tile (qi, ki); None when no tile needs masking."""
+    if not causal and not window:
+        return None
+    qpos = qi * chunk + rows[:, None]
+    kpos = ki * chunk + rows[None, :]
+    keep = torch.ones((chunk, chunk), dtype=torch.bool, device=rows.device)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= kpos > qpos - window
+    return keep
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, S, H, hd)
+    k: torch.Tensor,  # (B, S, KV, hd)
+    v: torch.Tensor,  # (B, S, KV, hd)
+    *,
+    causal: bool,
+    window: int = 0,     # 0 = unbounded
+    chunk: int = 1024,
+    p_dtype: torch.dtype = torch.float32,  # bf16 for bf16 configs (cfg.attn_p_bf16)
+) -> torch.Tensor:
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    chunk = min(chunk, S)
+    assert S % chunk == 0, (S, chunk)
+    nq = S // chunk
+    scale = 1.0 / (hd ** 0.5)
+
+    kf = _chunk(k, chunk)  # (n, B, C, KV, hd) — grouped: no repeat to H
+    vf = _chunk(v, chunk)
+    qf = _chunk(q.reshape(B, S, KV, G, hd), chunk)  # (n, B, C, KV, G, hd)
+    rows = torch.arange(chunk, device=q.device)
+
+    out_chunks = []
+    for qi in range(nq):
+        lo, hi = _k_range(qi, nq, chunk, causal, window)
+        qb = (qf[qi] * scale).to(q.dtype).float()  # (B, C, KV, G, hd)
+        m = torch.full((B, chunk, KV, G), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, chunk, KV, G), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, chunk, KV, G, hd), dtype=torch.float32, device=q.device)
+        for ki in range(lo, hi):
+            s = torch.einsum("bqkgd,bckd->bqkgc", qb, kf[ki].float())
+            mask = _tile_mask(qi, ki, chunk, causal, window, rows)
+            if mask is not None:
+                s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None]).to(p_dtype)  # stored compactly
+            alpha = torch.exp(m - m_new)
+            pf = p.float()
+            l = l * alpha + torch.sum(pf, dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqkgc,bckd->bqkgd", pf, vf[ki].to(p_dtype).float())
+            m = m_new
+        out_chunks.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+
+    out = torch.stack(out_chunks, dim=1)  # (B, nq, C, KV, G, hd)
+    return out.reshape(B, S, H, hd)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, H, hd) — single new token
+    k_cache: torch.Tensor,  # (B, S, KV, hd)
+    v_cache: torch.Tensor,  # (B, S, KV, hd)
+    pos: int,               # index of the new token
+    *,
+    window: int = 0,
+) -> torch.Tensor:
+    B, S, KV, hd = k_cache.shape
+    H = q.shape[1]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd)
+    scale = 1.0 / (hd ** 0.5)
+    # grouped: contract against the cache directly (no repeat materialization)
+    s = torch.einsum("bkgd,bskd->bkgs", (qg * scale).float(), k_cache.float())
+    idx = torch.arange(S, device=q.device)
+    keep = idx <= pos
+    if window:
+        keep &= idx > pos - window
+    s = torch.where(keep[None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def update_kv_cache(
+    k_cache: torch.Tensor,  # (B, S, KV, hd)
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,    # (B, KV, hd)
+    v_new: torch.Tensor,
+    pos: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Writes the new token's K/V at ``pos`` in place; returns the caches."""
+    k_cache[:, pos] = k_new.to(k_cache.dtype)
+    v_cache[:, pos] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def reference_attention(q, k, v, *, causal, window=0):
+    """O(S^2) oracle for tests (repeat-based, f32 throughout)."""
+    B, S, H, hd = q.shape
+    kf = _repeat_kv(k, H)
+    vf = _repeat_kv(v, H)
+    s = torch.einsum("bqhd,bkhd->bhqk", (q / (hd ** 0.5)).float(), kf.float())
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    keep = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= kpos > qpos - window
+    s = torch.where(keep[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf.float()).to(q.dtype)
+
+
+# --------------------------------------------------------------- A/B pair
+def chunked_attention_repeat(q, k, v, *, causal, window=0, chunk=1024):
+    """Repeat-based GQA baseline behind ``cfg.attn_grouped=False``: K/V
+    repeated to n_heads before the einsums, f32 probabilities; equal to the
+    grouped path at f32."""
+    B, S, H, hd = q.shape
+    chunk = min(chunk, S)
+    nq = S // chunk
+    scale = 1.0 / (hd ** 0.5)
+    kf = _chunk(_repeat_kv(k, H), chunk)
+    vf = _chunk(_repeat_kv(v, H), chunk)
+    qf = _chunk(q, chunk)
+    rows = torch.arange(chunk, device=q.device)
+    out_chunks = []
+    for qi in range(nq):
+        lo, hi = _k_range(qi, nq, chunk, causal, window)
+        qb = (qf[qi] * scale).float()
+        m = torch.full((B, chunk, H), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, chunk, H), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, chunk, H, hd), dtype=torch.float32, device=q.device)
+        for ki in range(lo, hi):
+            s = torch.einsum("bqhd,bkhd->bqhk", qb, kf[ki].float())
+            mask = _tile_mask(qi, ki, chunk, causal, window, rows)
+            if mask is not None:
+                s = torch.where(mask[None, :, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + torch.sum(p, dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bqhk,bkhd->bqhd", p, vf[ki].float())
+            m = m_new
+        out_chunks.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+    return torch.stack(out_chunks, dim=1).reshape(B, S, H, hd)
+
+
+def decode_attention_repeat(q, k_cache, v_cache, pos, *, window=0):
+    """Repeat-based decode baseline behind ``cfg.attn_grouped=False``."""
+    B, S, KV, hd = k_cache.shape
+    H = q.shape[1]
+    kf = _repeat_kv(k_cache, H)
+    vf = _repeat_kv(v_cache, H)
+    scale = 1.0 / (hd ** 0.5)
+    s = torch.einsum("bhd,bkhd->bhk", (q * scale).float(), kf.float())
+    idx = torch.arange(S, device=q.device)
+    keep = idx <= pos
+    if window:
+        keep &= idx > pos - window
+    s = torch.where(keep[None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhk,bkhd->bhd", p, vf.float()).to(q.dtype)

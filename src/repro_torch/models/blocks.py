@@ -1,0 +1,178 @@
+"""Per-family transformer blocks (param specs + apply fns).
+
+Params arrive as nested dicts of tensors, one layer's slice of the stacked
+parameters (``Model`` loops over the stacked leading axis). A full-sequence
+layer returns its K/V (the prefill's cache; the loss drops them)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.config.model import ModelConfig
+from repro_torch.models.attention import (
+    chunked_attention,
+    chunked_attention_repeat,
+    decode_attention,
+    decode_attention_repeat,
+    update_kv_cache,
+)
+from repro_torch.models.layers import apply_rope, matmul, mlp_apply, mlp_specs, rms_norm, rope_freqs
+from repro_torch.models.moe import moe_apply, moe_specs
+from repro_torch.models.spec import TensorSpec
+
+
+# ------------------------------------------------------------- attention core
+def attn_specs(cfg: ModelConfig, d_in: Optional[int] = None) -> dict:
+    d = d_in or cfg.d_model
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s = {
+        "wq": TensorSpec((d, H * hd), ("embed", "heads")),
+        "wk": TensorSpec((d, KV * hd), ("embed", "kv")),
+        "wv": TensorSpec((d, KV * hd), ("embed", "kv")),
+        "wo": TensorSpec((H * hd, d), ("heads", "embed")),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = TensorSpec((H * hd,), ("heads",), init="zeros")
+        s["bk"] = TensorSpec((KV * hd,), ("kv",), init="zeros")
+        s["bv"] = TensorSpec((KV * hd,), ("kv",), init="zeros")
+    return s
+
+
+def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = matmul(x, p["wq"])
+    k = matmul(x, p["wk"])
+    v = matmul(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
+
+
+def attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """Full-sequence attention. positions: (S,) absolute positions.
+    Returns (out, (k, v)), k and v after RoPE."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x)
+    if cfg.rope_theta:
+        cos, sin = rope_freqs(positions, cfg.hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    chunk = min(cfg.attn_chunk, S)
+    if cfg.attn_grouped:
+        p_dtype = torch.bfloat16 if (cfg.attn_p_bf16 and cfg.dtype == "bfloat16") else torch.float32
+        out = chunked_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+                                chunk=chunk, p_dtype=p_dtype)
+    else:  # A/B baseline
+        out = chunked_attention_repeat(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+                                       chunk=chunk)
+    return matmul(out.reshape(B, S, -1), p["wo"]), (k, v)
+
+
+def attn_decode_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, pos: int):
+    """x: (B, d_in) single token; caches (B, S, KV, hd), written at ``pos``."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, cfg, x[:, None])
+    if cfg.rope_theta:
+        cos, sin = rope_freqs(torch.full((1,), pos, device=x.device), cfg.hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    k_cache, v_cache = update_kv_cache(k_cache, v_cache, k[:, 0], v[:, 0], pos)
+    dec = decode_attention if cfg.attn_grouped else decode_attention_repeat
+    out = dec(q[:, 0], k_cache, v_cache, pos, window=cfg.sliding_window)
+    return matmul(out.reshape(B, -1), p["wo"]), k_cache, v_cache
+
+
+# ------------------------------------------------------------- dense layers
+def dense_layer_specs(cfg: ModelConfig) -> dict:
+    return {
+        "ln1": TensorSpec((cfg.d_model,), ("embed",), init="ones"),
+        "attn": attn_specs(cfg),
+        "ln2": TensorSpec((cfg.d_model,), ("embed",), init="ones"),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+def dense_layer_prefill(lp, cfg, x, positions):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    att, kv = attn_apply(lp["attn"], cfg, h, positions)
+    x = x + att
+    x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x, kv
+
+
+def dense_layer_decode(lp, cfg, x, k_cache, v_cache, pos):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    att, k_cache, v_cache = attn_decode_apply(lp["attn"], cfg, h, k_cache, v_cache, pos)
+    x = x + att
+    x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x, k_cache, v_cache
+
+
+# --------------------------------------------------------------- moe layers
+def moe_layer_specs(cfg: ModelConfig) -> dict:
+    return {
+        "ln1": TensorSpec((cfg.d_model,), ("embed",), init="ones"),
+        "attn": attn_specs(cfg),
+        "ln2": TensorSpec((cfg.d_model,), ("embed",), init="ones"),
+        "moe": moe_specs(cfg),
+    }
+
+
+def moe_layer_prefill(lp, cfg, x, positions):
+    """Returns (x, (k, v), aux)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    att, kv = attn_apply(lp["attn"], cfg, h, positions)
+    x = x + att
+    ff, aux = moe_apply(lp["moe"], cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
+    return x + ff, kv, aux
+
+
+def moe_layer_decode(lp, cfg, x, k_cache, v_cache, pos):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    att, k_cache, v_cache = attn_decode_apply(lp["attn"], cfg, h, k_cache, v_cache, pos)
+    x = x + att
+    ff, _ = moe_apply(lp["moe"], cfg, rms_norm(x, lp["ln2"], cfg.norm_eps)[:, None])
+    return x + ff[:, 0], k_cache, v_cache
+
+
+# ------------------------------------------------- zamba2 shared attention
+def shared_attn_specs(cfg: ModelConfig) -> dict:
+    """One set of weights, applied n_shared_attn() times (zamba trick). Input
+    is concat(hidden, initial_embeds) -> 2*d_model."""
+    d2 = 2 * cfg.d_model
+    attn = attn_specs(cfg, d_in=d2)
+    # output projection returns to the residual stream width (d_model)
+    attn["wo"] = TensorSpec((cfg.n_heads * cfg.hd, cfg.d_model), ("heads", "embed"))
+    return {
+        "ln": TensorSpec((d2,), ("embed",), init="ones"),
+        "attn": attn,
+        "ln2": TensorSpec((d2,), ("embed",), init="ones"),
+        "mlp": {
+            "gate": TensorSpec((d2, cfg.d_ff), ("embed", "mlp")),
+            "up": TensorSpec((d2, cfg.d_ff), ("embed", "mlp")),
+            "down": TensorSpec((cfg.d_ff, cfg.d_model), ("mlp", "embed")),
+        },
+    }
+
+
+def _shared_mlp(sp, cfg, x, e0):
+    return x + mlp_apply(sp["mlp"], rms_norm(torch.cat([x, e0], dim=-1), sp["ln2"], cfg.norm_eps))
+
+
+def shared_attn_prefill(sp, cfg, x, e0, positions):
+    cat = torch.cat([x, e0], dim=-1)
+    att, kv = attn_apply(sp["attn"], cfg, rms_norm(cat, sp["ln"], cfg.norm_eps), positions)
+    return _shared_mlp(sp, cfg, x + att, e0), kv
+
+
+def shared_attn_decode(sp, cfg, x, e0, k_cache, v_cache, pos):
+    cat = torch.cat([x, e0], dim=-1)
+    att, k_cache, v_cache = attn_decode_apply(
+        sp["attn"], cfg, rms_norm(cat, sp["ln"], cfg.norm_eps), k_cache, v_cache, pos
+    )
+    return _shared_mlp(sp, cfg, x + att, e0), k_cache, v_cache

@@ -1,0 +1,117 @@
+"""Shared layers: RMSNorm, RoPE, gated MLP, embeddings, chunked CE loss.
+
+``matmul`` and ``einsum`` promote their operands to a common dtype first:
+float32 activations meet bfloat16 weights in every reduced config, and
+``torch.matmul`` refuses mixed dtypes where ``jnp`` promotes. A bfloat16
+config keeps bfloat16 products (accumulated in float32 by the library).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config.model import ModelConfig
+from repro_torch.models.spec import TensorSpec
+
+
+def _common(*ops: torch.Tensor) -> list:
+    dt = ops[0].dtype
+    for o in ops[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return [o.to(dt) for o in ops]
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(*_common(a, b))
+
+
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    return torch.einsum(eq, *_common(*ops))
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- RoPE
+def rope_freqs(positions: torch.Tensor, head_dim: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions: (...,) int -> (cos, sin) of shape (..., head_dim/2) f32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    inv = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, hd); cos/sin: (S, hd/2) or broadcastable."""
+    half = x.shape[-1] // 2
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    c = cos[None, :, None, :].float()
+    s = sin[None, :, None, :].float()
+    return torch.cat([x1f * c - x2f * s, x2f * c + x1f * s], dim=-1).to(x.dtype)
+
+
+# -------------------------------------------------------------- gated MLP
+def mlp_specs(cfg: ModelConfig, d_in: int | None = None) -> dict:
+    d = d_in or cfg.d_model
+    return {
+        "gate": TensorSpec((d, cfg.d_ff), ("embed", "mlp")),
+        "up": TensorSpec((d, cfg.d_ff), ("embed", "mlp")),
+        "down": TensorSpec((cfg.d_ff, d), ("mlp", "embed")),
+    }
+
+
+def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(matmul(x, p["gate"])) * matmul(x, p["up"])
+    return matmul(h, p["down"])
+
+
+# ------------------------------------------------------------- embeddings
+def embed_specs(cfg: ModelConfig) -> dict:
+    # GPT-2-style 0.02 init; with tied embeddings this also keeps head logits
+    # in a sane range at init (scale-1.0 embeddings blow the tied CE up)
+    specs = {"tok": TensorSpec((cfg.vocab_size, cfg.d_model), ("vocab", "embed"))}
+    if not cfg.tie_embeddings:
+        specs["head"] = TensorSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    return specs
+
+
+def embed_tokens(p: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return p["tok"][tokens].to(dtype)
+
+
+def head_matrix(p: dict, cfg: ModelConfig) -> torch.Tensor:
+    return p["tok"].T if cfg.tie_embeddings else p["head"]
+
+
+# ------------------------------------------------- chunked cross-entropy
+def chunked_ce_loss(
+    x: torch.Tensor,           # (B, S, d) final hidden states
+    head: torch.Tensor,        # (d, V)
+    labels: torch.Tensor,      # (B, S) int; -1 = ignore
+    chunk: int,
+) -> torch.Tensor:
+    """Sequence-chunked softmax CE: never materializes (B, S, V) logits.
+    Forward only; the logits of a chunk are float32."""
+    B, S, d = x.shape
+    if S % chunk:
+        pad = chunk - S % chunk
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+        S += pad
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(S // chunk):
+        xs, ls = x[:, c * chunk:(c + 1) * chunk], labels[:, c * chunk:(c + 1) * chunk]
+        logits = matmul(xs, head).float()                      # (B, C, V)
+        m = torch.amax(logits, dim=-1, keepdim=True)
+        lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
+        gold = torch.gather(logits, -1, ls.clamp_min(0)[..., None])[..., 0]
+        valid = ls >= 0
+        total = total + torch.sum(torch.where(valid, lse - gold, 0.0))
+        count = count + torch.sum(valid)
+    return total / torch.clamp_min(count, 1.0)

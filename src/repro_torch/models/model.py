@@ -1,0 +1,316 @@
+"""Model assembly: specs, losses, prefill and decode steps for every family.
+
+    model = build_model(cfg, device)      # weights drawn from a seeded generator
+    specs = model.param_specs()           # TensorSpec tree (shapes + logical axes)
+    loss, metrics = model.loss(batch)     # forward
+    logits, cache = model.prefill(batch)
+    logits, cache = model.decode_step(tokens, cache, pos)
+
+Parameters are registered as stacked tensors under the dotted paths of the
+reference's parameter tree (``layers.attn.wq`` of shape (L, d, H*hd),
+``groups.mamba.in_proj``, ``shared.attn.wq``, ...); the layer loops run in
+Python over the stacked leading axis. ``cfg.remat`` and ``cfg.scan_unroll``
+do nothing in a forward pass. Decode writes its cache in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.config.model import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import blocks, ssm
+from repro_torch.models.layers import chunked_ce_loss, embed_specs, embed_tokens, head_matrix, matmul, rms_norm
+from repro_torch.models.spec import SpecTree, TensorSpec, tree_init, tree_map
+
+ACT_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _stack(specs: SpecTree, n: int, axis: str = "layers") -> SpecTree:
+    return tree_map(lambda s: TensorSpec((n,) + s.shape, (axis,) + s.axes, s.dtype, s.init, s.scale),
+                    specs)
+
+
+def _at(tree: Dict[str, Any], *idx: int) -> Dict[str, Any]:
+    """One layer's slice of a stacked parameter tree (views)."""
+    return tree_map(lambda t: t[idx], tree)
+
+
+def _module(tree: Dict[str, Any]) -> nn.Module:
+    """A module whose children are the sub-trees and whose parameters are
+    the leaves, so ``named_parameters`` yields the tree's dotted paths."""
+    node = nn.Module()
+    _register(node, tree)
+    return node
+
+
+def _register(node: nn.Module, tree: Dict[str, Any]) -> None:
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            node.add_module(key, _module(val))
+        else:
+            node.register_parameter(key, nn.Parameter(val))
+
+
+def _tree(node: nn.Module) -> Dict[str, Any]:
+    out: Dict[str, Any] = dict(node.named_parameters(recurse=False))
+    out.update({name: _tree(child) for name, child in node.named_children()})
+    return out
+
+
+def param_specs(cfg: ModelConfig) -> SpecTree:
+    """The TensorSpec tree of every parameter (no allocation)."""
+    specs: SpecTree = {"embed": embed_specs(cfg), "ln_f": TensorSpec((cfg.d_model,), ("embed",), init="ones")}
+    if cfg.family in ("dense", "vlm"):
+        specs["layers"] = _stack(blocks.dense_layer_specs(cfg), cfg.n_layers)
+    elif cfg.family == "encoder":
+        specs["layers"] = _stack(blocks.dense_layer_specs(cfg), cfg.n_layers)
+        specs["mask_emb"] = TensorSpec((cfg.d_model,), ("embed",))
+        specs["head"] = TensorSpec((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    elif cfg.family == "moe":
+        specs["layers"] = _stack(blocks.moe_layer_specs(cfg), cfg.n_layers)
+    elif cfg.family == "ssm":
+        layer = {"ln": TensorSpec((cfg.d_model,), ("embed",), init="ones"), "mamba": ssm.mamba1_specs(cfg)}
+        specs["layers"] = _stack(layer, cfg.n_layers)
+    elif cfg.family == "hybrid":
+        G, A = cfg.n_shared_attn(), cfg.attn_every
+        layer = {"ln": TensorSpec((cfg.d_model,), ("embed",), init="ones"), "mamba": ssm.mamba2_specs(cfg)}
+        specs["groups"] = _stack(_stack(layer, A, axis="sublayers"), G)
+        specs["shared"] = blocks.shared_attn_specs(cfg)
+    else:
+        raise ValueError(cfg.family)
+    if cfg.family == "encoder":
+        # encoder consumes frame embeddings; token table unused -> drop it
+        specs["embed"] = {}
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> SpecTree:
+    """TensorSpec tree for a decode cache of ``cache_len`` tokens."""
+    dt = ACT_DTYPE[cfg.dtype]
+    KV, hd, K = cfg.n_kv_heads, cfg.hd, cfg.ssm_conv
+
+    def kv(n: int) -> TensorSpec:
+        return TensorSpec((n, batch, cache_len, KV, hd),
+                          ("layers", "act_batch", "cache_seq", "kv", "hd"), dt, init="zeros")
+
+    if cfg.family in ("dense", "vlm", "moe"):
+        return {"k": kv(cfg.n_layers), "v": kv(cfg.n_layers)}
+    if cfg.family == "ssm":
+        return {
+            "ssm": TensorSpec((cfg.n_layers, batch, cfg.d_inner, cfg.ssm_state),
+                              ("layers", "act_batch", "ssm_inner", None), torch.float32, init="zeros"),
+            "conv": TensorSpec((cfg.n_layers, batch, K - 1, cfg.d_inner),
+                               ("layers", "act_batch", None, "ssm_inner"), dt, init="zeros"),
+        }
+    if cfg.family == "hybrid":
+        G, A = cfg.n_shared_attn(), cfg.attn_every
+        return {
+            "ssm": TensorSpec((G, A, batch, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state),
+                              ("layers", "sublayers", "act_batch", "ssm_heads", None, None),
+                              torch.float32, init="zeros"),
+            "conv": TensorSpec((G, A, batch, K - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                               ("layers", "sublayers", "act_batch", None, "ssm_inner"), dt, init="zeros"),
+            "k": kv(G),
+            "v": kv(G),
+        }
+    raise ValueError(cfg.family)
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
+                 generator: Optional[torch.Generator] = None) -> None:
+        """Weights drawn from ``generator`` (default: seed 0 on ``device``,
+        which defaults to ``cuda:0``)."""
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = ACT_DTYPE[cfg.dtype]
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(dev).manual_seed(0)
+        _register(self, tree_init(self.param_specs(), generator, dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.ln_f.device
+
+    def params(self) -> Dict[str, Any]:
+        """The parameters as a nested dict, keyed as the reference's tree."""
+        return _tree(self)
+
+    # ================================================================ specs
+    def param_specs(self) -> SpecTree:
+        return param_specs(self.cfg)
+
+    def _input(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    def _embed(self, params, batch) -> torch.Tensor:
+        x = embed_tokens(params["embed"], self._input(batch["tokens"]).long(), self.dtype)
+        if self.cfg.family == "vlm":
+            x = torch.cat([self._input(batch["patch_embeds"]).to(self.dtype), x], dim=1)
+        return x
+
+    def _positions(self, S: int) -> torch.Tensor:
+        return torch.arange(S, dtype=torch.int32, device=self.device)
+
+    # ================================================================ loss
+    def loss(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
+        """Forward loss: chunked CE (+ the MoE aux loss)."""
+        cfg, params = self.cfg, self.params()
+        labels = self._input(batch["labels"]).long()
+        if cfg.family == "encoder":
+            frames = self._input(batch["frame_embeds"]).to(self.dtype)
+            mask = self._input(batch["mask"]).bool()
+            x = torch.where(mask[..., None], params["mask_emb"].to(self.dtype), frames)
+            labels = torch.where(mask, labels, -1)  # predict only masked frames
+        else:
+            x = self._embed(params, batch)
+        x, aux, _ = self._stack_forward(params, x, self._positions(x.shape[1]), want_cache=False)
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        if cfg.family == "encoder":
+            head = params["head"]
+        else:
+            head = head_matrix(params["embed"], cfg)
+            # loss only over the text region (labels for patches are ignored)
+            x = x[:, x.shape[1] - labels.shape[1]:]
+        ce = chunked_ce_loss(x, head, labels, cfg.loss_chunk)
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    # ============================================================= backbone
+    def _stack_forward(self, params, x, positions, *, want_cache: bool):
+        """The layer stack over a full sequence: (x, aux, cache); the cache
+        (sized to the sequence) is filled only when ``want_cache``."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        cache: Dict[str, Any] = {}
+        if cfg.family in ("dense", "vlm", "encoder", "moe"):
+            ks, vs = [], []
+            for i in range(cfg.n_layers):
+                lp = _at(params["layers"], i)
+                if cfg.family == "moe":
+                    x, (k, v), a = blocks.moe_layer_prefill(lp, cfg, x, positions)
+                    aux = aux + a
+                else:
+                    x, (k, v) = blocks.dense_layer_prefill(lp, cfg, x, positions)
+                if want_cache:
+                    ks.append(k)
+                    vs.append(v)
+            if want_cache:
+                cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        elif cfg.family == "ssm":
+            hs, convs = [], []
+            for i in range(cfg.n_layers):
+                lp = _at(params["layers"], i)
+                pre = rms_norm(x, lp["ln"], cfg.norm_eps)
+                out, h_last = ssm.mamba1_forward(lp["mamba"], cfg, pre)
+                if want_cache:
+                    hs.append(h_last)
+                    convs.append(self._conv_tail(pre, lp))
+                x = x + out
+            if want_cache:
+                cache = {"ssm": torch.stack(hs), "conv": torch.stack(convs)}
+        elif cfg.family == "hybrid":
+            e0 = x  # concat-skip source (zamba trick)
+            G, A = cfg.n_shared_attn(), cfg.attn_every
+            hs, convs, ks, vs = [], [], [], []
+            for g in range(G):
+                for a in range(A):
+                    lp = _at(params["groups"], g, a)
+                    pre = rms_norm(x, lp["ln"], cfg.norm_eps)
+                    out, h_last = ssm.mamba2_forward(lp["mamba"], cfg, pre)
+                    if want_cache:
+                        hs.append(h_last)
+                        convs.append(self._conv_tail(pre, lp))
+                    x = x + out
+                x, (k, v) = blocks.shared_attn_prefill(params["shared"], cfg, x, e0, positions)
+                if want_cache:
+                    ks.append(k)
+                    vs.append(v)
+            if want_cache:
+                stack2 = lambda ts: torch.stack(ts).reshape((G, A) + tuple(ts[0].shape))
+                cache = {"ssm": stack2(hs), "conv": stack2(convs),
+                         "k": torch.stack(ks), "v": torch.stack(vs)}
+        else:
+            raise ValueError(cfg.family)
+        return x, aux, cache
+
+    def _conv_tail(self, pre, lp):
+        """Last K-1 conv inputs of a mamba layer, for the decode conv buffer."""
+        cfg = self.cfg
+        proj = matmul(pre[:, -(cfg.ssm_conv - 1):], lp["mamba"]["in_proj"])
+        if cfg.family == "hybrid":
+            return proj[..., cfg.d_inner: 2 * cfg.d_inner + 2 * cfg.ssm_state]
+        return proj[..., : cfg.d_inner]
+
+    # ============================================================== prefill
+    @torch.no_grad()
+    def prefill(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Process a prompt; returns (last-token logits, cache). The cache is
+        sized to the prompt length (callers pad prompts to cache size). An
+        encoder returns its (B, S, V) frame logits and no cache."""
+        cfg, params = self.cfg, self.params()
+        if cfg.family == "encoder":
+            x = self._input(batch["frame_embeds"]).to(self.dtype)
+        else:
+            x = self._embed(params, batch)
+        x, _, cache = self._stack_forward(params, x, self._positions(x.shape[1]),
+                                          want_cache=cfg.family != "encoder")
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        if cfg.family == "encoder":
+            return matmul(x, params["head"]).float(), {}
+        return matmul(x[:, -1], head_matrix(params["embed"], cfg)).float(), cache
+
+    # =============================================================== decode
+    @torch.no_grad()
+    def decode_step(self, tokens, cache: Dict[str, torch.Tensor], pos: int):
+        """One autoregressive step. tokens: (B,) ints; pos: the new token's
+        index. Returns (logits (B, V) f32, cache), the cache updated in place."""
+        cfg, params = self.cfg, self.params()
+        assert cfg.has_decode, f"{cfg.name} is encoder-only"
+        pos = int(pos)
+        x = embed_tokens(params["embed"], self._input(tokens).long(), self.dtype)  # (B, d)
+
+        if cfg.family in ("dense", "vlm", "moe"):
+            layer_fn = blocks.moe_layer_decode if cfg.family == "moe" else blocks.dense_layer_decode
+            for i in range(cfg.n_layers):
+                x, _, _ = layer_fn(_at(params["layers"], i), cfg, x, cache["k"][i], cache["v"][i], pos)
+        elif cfg.family == "ssm":
+            for i in range(cfg.n_layers):
+                lp = _at(params["layers"], i)
+                out, cache["ssm"][i], cache["conv"][i] = ssm.mamba1_decode(
+                    lp["mamba"], cfg, rms_norm(x, lp["ln"], cfg.norm_eps), cache["ssm"][i], cache["conv"][i])
+                x = x + out
+        elif cfg.family == "hybrid":
+            # concat-skip uses the *current* token's embedding (matches the
+            # per-position e0 stream in the full forward pass)
+            e0 = x
+            for g in range(cfg.n_shared_attn()):
+                for a in range(cfg.attn_every):
+                    lp = _at(params["groups"], g, a)
+                    out, cache["ssm"][g, a], cache["conv"][g, a] = ssm.mamba2_decode(
+                        lp["mamba"], cfg, rms_norm(x, lp["ln"], cfg.norm_eps),
+                        cache["ssm"][g, a], cache["conv"][g, a])
+                    x = x + out
+                x, _, _ = blocks.shared_attn_decode(params["shared"], cfg, x, e0, cache["k"][g],
+                                                    cache["v"][g], pos)
+        else:
+            raise ValueError(cfg.family)
+
+        x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return matmul(x, head_matrix(params["embed"], cfg)).float(), cache
+
+    # ================================================================ cache
+    def cache_specs(self, batch: int, cache_len: int) -> SpecTree:
+        return cache_specs(self.cfg, batch, cache_len)
+
+    def init_cache(self, batch: int, cache_len: int) -> Dict[str, torch.Tensor]:
+        return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=self.device),
+                        self.cache_specs(batch, cache_len))
+
+
+def build_model(cfg: ModelConfig, device: DeviceLike = None, *,
+                generator: Optional[torch.Generator] = None) -> Model:
+    return Model(cfg, device, generator=generator)

@@ -638,3 +638,109 @@ def test_scrub_farm_default_raises_without_cuda(monkeypatch):
         ScrubFarm()
     with pytest.raises(RuntimeError, match="CUDA"):
         ElasticFarmController()
+
+
+# ------------------------------------------------------------ LM serving
+LM_SERVE_ARCHS = ["qwen2-0.5b", "h2o-danube-1.8b", "mixtral-8x22b", "olmoe-1b-7b",
+                  "falcon-mamba-7b", "zamba2-2.7b"]
+LM_TOL = dict(atol=1e-4, rtol=1e-4)  # reduced configs, f32 activations, TF32 off
+
+
+def _lm_pair(cfg, cuda, seed=0):
+    """The same weights on the CPU and on the card."""
+    import copy
+
+    from repro_torch.models import build_model
+
+    cpu = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(seed))
+    return cpu, copy.deepcopy(cpu).to(cuda)
+
+
+def _lm_prompt(cfg, seed):
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encoder":
+        return {"frame_embeds": rng.standard_normal((2, 32, cfg.d_model)).astype(np.float32)}
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 16 if cfg.family == "vlm" else 32))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.standard_normal((2, 16, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _lm_serve(model, prompts, max_new, max_batch):
+    from repro_torch.serving import Request, ServeEngine
+
+    eng = ServeEngine(model, max_batch=max_batch)
+    for i, (p, m) in enumerate(zip(prompts, max_new)):
+        eng.submit(Request(f"r{i}", p, max_new_tokens=m))
+    return [r.tokens for r in eng.run()]
+
+
+@pytest.mark.parametrize("arch", LM_SERVE_ARCHS + ["llava-next-34b", "hubert-xlarge"])
+def test_lm_reduced_on_card_equals_cpu(cuda, arch):
+    from repro_torch.config import get_arch
+    from repro_torch.kernels import LAUNCHES
+
+    before = dict(LAUNCHES)
+    cfg = get_arch(arch).reduced()
+    cpu, card = _lm_pair(cfg, cuda)
+    batch = _lm_prompt(cfg, seed=1)
+    lc, _ = cpu.prefill(batch)
+    lg, _ = card.prefill(batch)
+    assert lg.device == cuda
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), **LM_TOL)
+    if arch in LM_SERVE_ARCHS:  # llava and hubert: prefill logits only
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (64, 17, 40, 33, 64, 8)]
+        max_new = [12, 12, 5, 12, 7, 12]
+        assert _lm_serve(card, prompts, max_new, 3) == _lm_serve(cpu, prompts, max_new, 3)
+    assert dict(LAUNCHES) == before  # the LM path launches none of the port's kernels
+
+
+def test_lm_full_width_f32_prefill_on_card_equals_cpu(cuda):
+    import dataclasses
+
+    from repro_torch.config import get_arch
+
+    cfg = dataclasses.replace(get_arch("qwen2-0.5b"), dtype="float32")
+    cpu, card = _lm_pair(cfg, cuda, seed=3)
+    assert sum(p.numel() for p in card.parameters()) == cfg.param_count()
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 64))
+    lc, cc = cpu.prefill({"tokens": tokens})
+    lg, cg = card.prefill({"tokens": tokens})
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), atol=1e-3, rtol=1e-3)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(cg[name].cpu().numpy(), cc[name].numpy(), atol=1e-3, rtol=1e-3)
+
+
+def test_lm_falcon_mamba_batch_equal_to_prompt_length_on_card(cuda):
+    from repro_torch.config import get_arch
+
+    cfg = get_arch("falcon-mamba-7b").reduced()
+    cpu, card = _lm_pair(cfg, cuda)
+    prompts = [[1, 2, 3, 4], [5, 6, 7, 8], [9, 10, 11, 12], [13, 14, 15, 16]]
+    want = _lm_serve(cpu, prompts, [3] * 4, 2)
+    assert _lm_serve(card, prompts, [3] * 4, 4) == want  # B == P
+    assert _lm_serve(cpu, prompts, [3] * 4, 4) == want
+
+
+def test_lm_defaults_to_the_card(cuda, monkeypatch):
+    from repro_torch.config import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = get_arch("qwen2-0.5b").reduced()
+    model = build_model(cfg)
+    assert model.device == torch.device("cuda:0")
+    assert all(p.device == torch.device("cuda:0") for p in model.parameters())
+    eng = ServeEngine(model, max_batch=2)
+    eng.submit(Request("r0", [1, 2, 3], max_new_tokens=4, temperature=0.8))
+    eng.submit(Request("r1", [4, 5, 6], max_new_tokens=4))
+    assert [len(r.tokens) for r in eng.run()] == [4, 4]  # samples with a generator on the card
+    assert serve.main(["--requests", "2", "--max-new", "3"])["device"] == "cuda:0"
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--requests", "1"])

@@ -61,7 +61,7 @@ def test_every_kernel_source_names_the_tpu_kernel_it_replaces():
 
 def test_example_twins_are_scanned():
     twins = sorted(p.name for p in (ROOT / "examples").glob("*_torch.py"))
-    assert twins == ["deid_at_scale_torch.py", "quickstart_torch.py"]
+    assert twins == ["deid_at_scale_torch.py", "quickstart_torch.py", "serve_lm_torch.py"]
 
 
 def test_resolve_device():
@@ -105,5 +105,15 @@ def test_package_lists_its_modules():
                    "repro_torch.ingest.pooler", "repro_torch.core.scenarios",
                    "repro_torch.sim.traffic", "repro_torch.sim.chaos",
                    "repro_torch.sim.invariants", "repro_torch.sim.harness",
-                   "repro_torch.distributed.scrub_farm", "repro_torch.distributed.elastic"):
+                   "repro_torch.distributed.scrub_farm", "repro_torch.distributed.elastic",
+                   "repro_torch.config.model", "repro_torch.config.registry",
+                   *(f"repro_torch.configs.{m}" for m in (
+                       "qwen1_5_110b", "qwen2_0_5b", "glm4_9b", "h2o_danube_1_8b", "mixtral_8x22b",
+                       "olmoe_1b_7b", "llava_next_34b", "zamba2_2_7b", "hubert_xlarge",
+                       "falcon_mamba_7b")),
+                   "repro_torch.models.spec", "repro_torch.models.layers",
+                   "repro_torch.models.attention", "repro_torch.models.moe",
+                   "repro_torch.models.ssm", "repro_torch.models.blocks",
+                   "repro_torch.models.model", "repro_torch.serving.engine",
+                   "repro_torch.launch.serve"):
         assert needed in names
