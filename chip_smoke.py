@@ -111,8 +111,29 @@ Phases, in order; any failure raises and exits non-zero:
             1e-3, greedy tokens equal); every family reduced, card against
             CPU (dense, sliding window, two MoE, SSM, hybrid served, greedy
             tokens equal; the VLM and the encoder prefilled, logits within
-            1e-4); falcon-mamba served at B == P. (l) runs after phase 4's
-            timings, last before the result lines.
+            1e-4); falcon-mamba served at B == P.
+            (m) LM training, plain PyTorch: (m1) ``python -m
+            repro_torch.launch.train --arch qwen2-0.5b --full`` on the card,
+            B 8 x S 1024, bf16 with an f32 master copy, remat "full", lr 3e-4
+            cosine with 5 warm-up steps, 2 warm-up steps (the second traced
+            with ``torch.profiler``) and 10 timed between synchronizes: step
+            ms, tokens/s, peak memory, the FLOP bound, the final checkpoint
+            save; every loss finite, the last below the first, the AdamW
+            state 12 bytes a parameter; (m2) the same architecture in f32 cut
+            to 4 layers, 2 steps of B 2 x S 128 on the card and on the CPU
+            from the same weights (loss and gnorm within 1e-4 relative, every
+            weight's f32 master within 1e-4 relative per leaf; the
+            zero-initialised QKV biases, which hold only AdamW's normalised
+            steps, within 2 x the summed learning rate); (m3) every family reduced, 3 steps card against CPU
+            (losses within 1e-4), 2 microbatches against 1 (1e-5), the
+            launcher with ``--compression``; (m4) a checkpoint saved at step 2
+            on the card restores bit for bit into a fresh state and 2 more
+            steps equal the uninterrupted run; (m5)
+            ``examples/deid_to_training_torch.py`` on the card: scrub and
+            phi_detect launched (counts read around it), delivered pixels,
+            audit and 20 losses equal to its ``--device cpu`` run. (m1)-(m4)
+            launch none of the port's kernels. (l) and (m) run after phase
+            4's timings, last before the result lines.
 4. result — fused and textdetect timed at every shape their wrappers
             counted on the cold and the detector path, and at one block, and
             bitmap at each shape it was counted at on path (e);
@@ -129,6 +150,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1644,8 +1666,9 @@ def _lm_trace(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler`` (CUPTI): its wall time on
     the host clock (synchronized; the profiler's own cost included), the
     card's busy time (the union of its kernel, copy and fill intervals), the
-    idle share that leaves, the kernels launched, and the six ops with the
-    most host self time."""
+    idle share that leaves, the kernels launched, the six ops with the most
+    host self time, and the eight kernels (by name) with the most device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1666,10 +1689,15 @@ def _lm_trace(fn) -> dict:
             busy += b - max(a, end)
             end = b
     top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
+    kernel_us = Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernel_us[e["name"][:60]] += e["dur"]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "idle_share": 1 - busy / wall_us if spans else None,
             "kernels": sum(1 for e in events if e.get("cat") == "kernel"),
-            "host_self_ms_top": [(e.key, e.count, e.self_cpu_time_total / 1e3) for e in top]}
+            "host_self_ms_top": [(e.key, e.count, e.self_cpu_time_total / 1e3) for e in top],
+            "kernel_ms_top": [(name, us / 1e3) for name, us in kernel_us.most_common(8)]}
 
 
 def _lm_full_width_bf16() -> dict:
@@ -1837,6 +1865,369 @@ def run_lm_path() -> dict:
     assert dict(LAUNCHES) == before, f"path (l) launched port kernels: {before} -> {dict(LAUNCHES)}"
     log(f"lm serving (l): {time.perf_counter() - t0:.1f} s; kernel launches unchanged")
     return {"bf16": bf16, "f32": f32, "families": fam}
+
+
+# --------------------------------------------------- phase 3: training (m)
+# path (m1): `python -m repro_torch.launch.train --arch qwen2-0.5b --full` at
+# B 8 x S 1024 (8192 tokens a step), bf16 with an f32 master copy, remat
+# "full", lr 3e-4 cosine with 5 warm-up steps, weights from seed 0 drawn on
+# the host; 2 warm-up steps (the second traced), then 10 timed
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARM, TRAIN_TIMED = 8, 1024, 2, 10
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 5
+# (m3): every family reduced, card against CPU, 3 steps each
+TRAIN_FAMILIES = {"dense": "qwen2-0.5b", "sliding window": "h2o-danube-1.8b", "moe": "olmoe-1b-7b",
+                  "ssm": "falcon-mamba-7b", "hybrid": "zamba2-2.7b", "vlm": "llava-next-34b",
+                  "encoder": "hubert-xlarge"}
+TRAIN_TOL = 1e-4  # losses (atol and rtol), gnorm and weights (relative per leaf), card against CPU
+
+
+def _train_flops(cfg, B: int, S: int) -> dict:
+    """FLOPs of one train step, from the code: 6 x the matmul parameters x
+    tokens (forward 2, backward 4; the tied head counted once, the embedding
+    lookup none), plus causal attention's QK^T and PV over the S(S+1)/2
+    pairs a head keeps, three times (forward, backward); and what remat
+    "full" recomputes beside them: each layer's forward once more and each
+    CE chunk's head product."""
+    d, H, KV, hd, f, V, L = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size, cfg.n_layers
+    layer = d * H * hd + 2 * d * KV * hd + H * hd * d + 3 * d * f
+    tokens = B * S
+    attn_fwd = L * B * H * 4 * hd * S * (S + 1) // 2
+    model = 6 * (L * layer + d * V) * tokens + 3 * attn_fwd
+    recompute = 2 * L * layer * tokens + attn_fwd + 2 * d * V * tokens
+    return {"matmul_params": L * layer + d * V, "model_flops": model, "recompute_flops": recompute}
+
+
+def _train_full_width_bf16(tmp: str) -> dict:
+    """(m1): the training launcher at full width on the card, its steps
+    timed between synchronizes, one traced, its checkpoint save timed."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch import train as launch_train
+
+    steps = TRAIN_WARM + TRAIN_TIMED
+    spent, metrics, last, trace, saves = [], [], {}, {}, []
+    make_step, manager = launch_train.make_train_step, launch_train.CheckpointManager
+
+    def timed_factory(model, sched, **kw):
+        step = make_step(model, sched, **kw)
+        last["model"] = model
+
+        def call(state, batch):
+            if len(metrics) == TRAIN_WARM - 1:  # the second warm-up step, traced
+                held = {}
+                trace.update(_lm_trace(lambda: held.update(out=step(state, batch))))
+                out = held["out"]
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                spent.append(time.perf_counter() - t0)
+            metrics.append(out[1])
+            last["state"] = out[0]
+            return out
+        return call
+
+    class TimedManager(manager):
+        def save(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = super().save(*a, **kw)
+            saves.append(time.perf_counter() - t0)
+            return path
+
+    cfg = get_arch(LM_ARCH)
+    launch_train.make_train_step, launch_train.CheckpointManager = timed_factory, TimedManager
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        result = launch_train.main(["--arch", LM_ARCH, "--full", "--steps", str(steps),
+                                    "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                                    "--lr", str(TRAIN_LR), "--warmup", str(TRAIN_WARMUP),
+                                    "--ckpt-every", "0", "--ckpt-dir", tmp, "--seed", "0"])
+    finally:
+        launch_train.make_train_step, launch_train.CheckpointManager = make_step, manager
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    assert result["device"] == "cuda:0" and result["steps"] == steps
+
+    state = last["state"]
+    losses = [float(m["loss"]) for m in metrics]
+    assert len(losses) == steps and all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], f"full-width training: loss did not fall {losses}"
+    n_params = sum(p.numel() for p in _leaves(state.params))
+    assert n_params == cfg.param_count() == 494_032_768
+    param_bytes = sum(p.numel() * p.element_size() for p in _leaves(state.params))
+    opt_bytes = sum(t.numel() * t.element_size() for name in ("m", "v", "master")
+                    for t in _leaves(getattr(state.opt, name)))
+    assert all(p.dtype == torch.bfloat16 for p in _leaves(state.params))
+    assert param_bytes == 2 * n_params and opt_bytes == 12 * n_params, (param_bytes, opt_bytes)
+
+    split = _train_step_split(last["model"], state, cfg)
+    timed = spent[-TRAIN_TIMED:]
+    flops = _train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flop_ms = flops["model_flops"] / BF16_OPS_PER_S * 1e3
+    # bytes a step must move at least: weights in and out, the AdamW state
+    # (m, v, master) in and out, the batch
+    byte_ms = (2 * param_bytes + 2 * opt_bytes + 2 * 4 * tokens) / HBM_BYTES_PER_S * 1e3
+    step_ms = statistics.median(timed) * 1e3
+    out = {"arch": LM_ARCH, "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "tokens_per_step": tokens, "losses": losses, "step_ms_median": step_ms,
+           "step_ms_min": min(timed) * 1e3, "step_ms_max": max(timed) * 1e3,
+           "tokens_per_s": tokens / statistics.median(timed), "peak_bytes": peak,
+           "param_bytes": param_bytes, "grad_bytes": param_bytes, "opt_state_bytes": opt_bytes,
+           **flops, "bound_ms": max(flop_ms, byte_ms), "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+           "byte_bound_ms": byte_ms, "recompute_ms_at_peak": flops["recompute_flops"] / BF16_OPS_PER_S * 1e3,
+           "checkpoint_save_s": saves, "launcher_wall_s": wall, **split, "trace_step": trace,
+           "card": card_line()}
+    out["pct_of_bound"] = 100 * out["bound_ms"] / step_ms
+    return out
+
+
+def _train_step_split(model, state, cfg, reps: int = 3) -> dict:
+    """A step's two halves on the launcher's model after its run, each
+    between synchronizes, median of ``reps``: the loss with its backward
+    pass, and the update (global-norm clip, AdamW, the weights written)."""
+    from repro_torch.launch.train import batch_to_device
+    from repro_torch.training import SyntheticTokenPipeline, adamw_update, clip_by_global_norm
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.train_step import _write_params
+
+    batch = batch_to_device(SyntheticTokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=1).get_batch(0),
+                            torch.device("cuda:0"))
+    params, back, upd = _leaves(state.params), [], []
+    opt = state.opt
+    for _ in range(reps):
+        for p in params:
+            p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.loss(batch)[0].backward()
+        torch.cuda.synchronize()
+        back.append(time.perf_counter() - t0)
+        grads = tree_map(lambda p: p.grad, state.params)
+        for p in params:
+            p.grad = None
+        t0 = time.perf_counter()
+        clipped, _ = clip_by_global_norm(grads, 1.0)
+        new, opt = adamw_update(clipped, opt, torch.tensor(1e-5, device="cuda:0"))
+        _write_params(state.params, new)
+        torch.cuda.synchronize()
+        upd.append(time.perf_counter() - t0)
+        del grads, clipped, new
+    return {"loss_and_backward_ms": statistics.median(back) * 1e3,
+            "update_ms": statistics.median(upd) * 1e3}
+
+
+def _leaves(tree):
+    from repro_torch.training.optimizer import tree_leaves
+
+    return tree_leaves(tree) if isinstance(tree, dict) else [tree]
+
+
+def _train_pair(cfg, seed, compression=False):
+    """The same weights and optimizer state on the CPU and on the card."""
+    import copy
+
+    from repro_torch.models import build_model
+    from repro_torch.training import train_state_init
+
+    cpu = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(seed))
+    card = copy.deepcopy(cpu).to("cuda:0")
+    return [(m, train_state_init(m, compression=compression)) for m in (cpu, card)]
+
+
+def _train_full_width_f32() -> dict:
+    """(m2): qwen2-0.5b at full width in f32, depth cut to 4 layers, B 2 x
+    S 128: 2 steps from the same weights on the card and on the CPU."""
+    from repro_torch.config import get_arch
+    from repro_torch.models.spec import tree_items
+    from repro_torch.training import SyntheticTokenPipeline, cosine_schedule, make_train_step
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), dtype="float32", n_layers=4)
+    pipe = SyntheticTokenPipeline(cfg, 2, 128, seed=0)
+    runs = []
+    for model, state in _train_pair(cfg, seed=2):
+        step = make_train_step(model, cosine_schedule(TRAIN_LR, TRAIN_WARMUP, 12))
+        ms = []
+        for i in range(2):
+            state, m = step(state, pipe.get_batch(i))
+            ms.append({k: float(v) for k, v in m.items()})
+        runs.append((ms, state))
+    (m_cpu, s_cpu), (m_card, s_card) = runs
+    out = {"loss": [], "gnorm": [], "worst_master_rel": 0.0}
+    for i, (a, b) in enumerate(zip(m_card, m_cpu)):
+        for k in ("loss", "gnorm"):
+            rel = abs(a[k] - b[k]) / abs(b[k])
+            assert rel <= TRAIN_TOL, f"(m2) step {i} {k}: card {a[k]} cpu {b[k]}"
+            out[k].append((a[k], b[k]))
+    # every weight's f32 master copy (the bf16 weights are its rounding: a
+    # master 1e-6 off may round one bf16 ulp, 4e-3 of an element, the other
+    # way). A leaf drawn at init within 1e-4 relative (||card - cpu|| /
+    # ||cpu||); a leaf that starts at zero (the QKV biases) holds nothing but
+    # AdamW's normalised steps, which carry a gradient near zero (a sum that
+    # cancels) to a step of up to lr whatever its rounding: each element
+    # within AdamW's reach, 2 x lr summed over the steps
+    lr_sum = sum(cosine_schedule(TRAIN_LR, TRAIN_WARMUP, 12)(torch.tensor(i)).item() for i in range(2))
+    zero_init = {k.replace(".", "/") for k, spec in tree_items(model.param_specs()) if spec.init == "zeros"}
+    out["zero_init_worst_over_reach"] = 0.0
+    for (name, p), q in zip(_named(s_card.opt.master), _leaves(s_cpu.opt.master)):
+        diff = p.double().cpu() - q.double()
+        if name in zero_init:
+            worst = float(diff.abs().max()) / (2 * lr_sum)
+            assert worst <= 1.0, f"(m2) master {name} after step 2 beyond AdamW's reach: {worst}"
+            out["zero_init_worst_over_reach"] = max(out["zero_init_worst_over_reach"], worst)
+        else:
+            rel = float(torch.linalg.norm(diff) / torch.linalg.norm(q.double()))
+            assert rel <= TRAIN_TOL, f"(m2) master {name} after step 2: {rel}"
+            out["worst_master_rel"] = max(out["worst_master_rel"], rel)
+    return out
+
+
+def _named(tree):
+    from repro_torch.training.checkpoint import flatten_with_paths
+
+    return list(flatten_with_paths(tree).items())
+
+
+def _train_reduced_families(tmp: str) -> dict:
+    """(m3): every family reduced, 3 steps card against CPU; 2 microbatches
+    against 1 on the card; the launcher with --compression on the card."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import SyntheticTokenPipeline, cosine_schedule, make_train_step
+
+    out = {}
+    for family, arch in TRAIN_FAMILIES.items():
+        cfg = get_arch(arch).reduced()
+        pipe = SyntheticTokenPipeline(cfg, 2, 32, seed=1)
+        losses = []
+        for model, state in _train_pair(cfg, seed=0):
+            step = make_train_step(model, cosine_schedule(1e-3, 1, 10))
+            ls = []
+            for i in range(3):
+                state, m = step(state, pipe.get_batch(i))
+                ls.append(float(m["loss"]))
+            losses.append(ls)
+        np.testing.assert_allclose(losses[1], losses[0], atol=TRAIN_TOL, rtol=TRAIN_TOL,
+                                   err_msg=f"(m3) {arch}: card losses differ from the CPU's")
+        out[family] = {"arch": arch, "card": losses[1], "cpu": losses[0]}
+
+    cfg = get_arch(LM_ARCH).reduced()
+    batch = SyntheticTokenPipeline(cfg, 4, 64, seed=3).get_batch(1)
+    mb = {}
+    for n in (1, 2):
+        (_, _), (model, state) = _train_pair(cfg, seed=1)
+        _, m = make_train_step(model, cosine_schedule(1e-3, 0, 10), microbatches=n)(state, batch)
+        mb[n] = float(m["loss"])
+    assert abs(mb[2] - mb[1]) <= 1e-5 * abs(mb[1]), f"(m3) 2 microbatches {mb[2]} vs 1 {mb[1]}"
+    out["microbatches 1 / 2"] = [mb[1], mb[2]]
+    comp = launch_train.main(["--arch", LM_ARCH, "--steps", "3", "--batch", "4", "--seq", "64",
+                              "--compression", "--ckpt-dir", tmp])
+    assert comp["device"] == "cuda:0" and math.isfinite(comp["final_loss"])
+    out["compression final loss"] = comp["final_loss"]
+    return out
+
+
+def _train_checkpoint(tmp: str) -> dict:
+    """(m4): save at step 2 on the card, restore into a fresh state (other
+    weights), every leaf bit-identical to the saved one; 2 more steps equal
+    to the uninterrupted run's."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.training import CheckpointManager, SyntheticTokenPipeline, cosine_schedule
+    from repro_torch.training import make_train_step, train_state_init
+
+    cfg = get_arch(LM_ARCH).reduced()
+    pipe = SyntheticTokenPipeline(cfg, 2, 64, seed=9)
+
+    def run(model, state, lo, hi):
+        step = make_train_step(model, cosine_schedule(1e-3, 0, 10), compression=True)
+        losses = []
+        for i in range(lo, hi):
+            state, m = step(state, pipe.get_batch(i))
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    def fresh(seed):
+        model = build_model(cfg, "cuda:0", generator=torch.Generator().manual_seed(seed))
+        return model, train_state_init(model, compression=True)
+
+    _, whole = run(*fresh(5), 0, 4)
+    model, state = fresh(5)
+    state, first = run(model, state, 0, 2)
+    mgr = CheckpointManager(Path(tmp) / "m4")
+    mgr.save(2, state)
+    saved = {k: v.detach().clone() for k, v in _named(state)}
+    other, template = fresh(77)
+    restored, step, _ = mgr.restore(template)
+    assert step == 2
+    named = _named(restored)
+    assert [k for k, _ in named] == list(saved)
+    for k, v in named:
+        assert v.device.type == "cuda" and v.dtype == saved[k].dtype and torch.equal(v, saved[k]), \
+            f"(m4) restored leaf {k} differs from the saved one"
+    _, rest = run(other, restored, 2, 4)
+    np.testing.assert_allclose(first + rest, whole, atol=TRAIN_TOL, rtol=TRAIN_TOL,
+                               err_msg="(m4) resumed run differs from the uninterrupted one")
+    return {"leaves": len(named), "uninterrupted": whole, "resumed": first + rest}
+
+
+def _train_deid_twin() -> dict:
+    """(m5): examples/deid_to_training_torch.py on the card (scrub and
+    phi_detect launch counts read around it) against its device="cpu" run."""
+    import importlib.util
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    spec = importlib.util.spec_from_file_location("deid_to_training_torch",
+                                                  ROOT / "examples" / "deid_to_training_torch.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    reset_launches()
+    t0 = time.perf_counter()
+    card = twin.main(["--device", "cuda:0"])
+    wall = time.perf_counter() - t0
+    launched = dict(LAUNCHES)
+    for k in ("scrub", "phi_detect"):
+        assert launched[k] > 0, f"(m5) kernel {k} never launched on the de-id -> training path"
+    cpu = twin.main(["--device", "cpu"])
+    assert card["flagged"] == cpu["flagged"] == 0
+    assert len(card["delivered"]) == len(cpu["delivered"]) == 12
+    for a, b in zip(card["delivered"], cpu["delivered"]):
+        assert np.array_equal(a.pixels, b.pixels), "(m5) delivered pixels differ from the CPU run's"
+    np.testing.assert_allclose(card["losses"], cpu["losses"], atol=TRAIN_TOL, rtol=TRAIN_TOL,
+                               err_msg="(m5) losses differ from the CPU run's")
+    return {"launches": launched, "wall_s": wall, "losses": card["losses"], "cpu_losses": cpu["losses"]}
+
+
+def run_train_path() -> dict:
+    """Path (m), training: (m1) qwen2-0.5b at full width through the
+    launcher on the card; (m2) f32 card against CPU at full width, 4 layers;
+    (m3) every family reduced, card against CPU, microbatches, compression;
+    (m4) a checkpoint on the card; (m5) the de-id -> training twin, whose
+    scrub and phi_detect launches are read around it. (m1)-(m4) launch
+    none of the port's kernels (plain PyTorch, as the reference's training
+    is plain jnp): their launch counts must not move."""
+    from repro_torch.kernels import LAUNCHES
+
+    t0 = time.perf_counter()
+    before = dict(LAUNCHES)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        full = _train_full_width_bf16(tmp)
+        log(f"training (m1), {full['arch']} full width bf16 on the card: {json.dumps(full)}")
+        f32 = _train_full_width_f32()
+        log(f"training (m2), {LM_ARCH} full width f32 (4 layers) card against CPU (1e-4 relative): "
+            f"{json.dumps(f32)}")
+        fam = _train_reduced_families(tmp)
+        log(f"training (m3), reduced families card against CPU (losses 1e-4): {json.dumps(fam)}")
+        ckpt = _train_checkpoint(tmp)
+        log(f"training (m4), checkpoint on the card: {json.dumps(ckpt)}")
+    assert dict(LAUNCHES) == before, f"(m1)-(m4) launched port kernels: {before} -> {dict(LAUNCHES)}"
+    twin = _train_deid_twin()
+    log(f"training (m5), de-id -> training twin, card against CPU: {json.dumps(twin)}")
+    log(f"training (m): {time.perf_counter() - t0:.1f} s")
+    return {"bf16": full, "f32": f32, "families": fam, "checkpoint": ckpt, "deid": twin}
 
 
 # ------------------------------------------------- phase 3: serving paths
@@ -2472,6 +2863,9 @@ def main() -> None:
     # torch.profiler traces, textdetect's and bitmap's event times were 3-4x
     # those timed without it, fused's unchanged
     run_lm_path()
+    # training (m): qwen2-0.5b at full width, every family reduced, a
+    # checkpoint, and the de-id -> training twin (scrub, phi_detect)
+    run_train_path()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

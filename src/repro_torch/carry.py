@@ -8,7 +8,9 @@ numpy arrays, and :func:`study_from_plain` builds this package's objects
 from them, so a study made elsewhere can be de-identified here.
 
 The LM stack's weights cross as a nested dict of numpy arrays
-(:func:`model_params_from_numpy`), keyed as the model's parameter tree.
+(:func:`model_params_from_numpy`), keyed as the model's parameter tree, and
+a whole training state (weights, AdamW moments and master copy, compression
+residuals) as any tree of that shape (:func:`train_state_from_numpy`).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.dicom.dataset import DicomDataset
 from repro_torch.dicom.devices import DeviceKey
 from repro_torch.dicom.generator import SyntheticStudy
 from repro_torch.models.spec import tree_items
+from repro_torch.training.checkpoint import flatten_with_paths, unflatten_with_paths
 
 
 def dataset_from_plain(
@@ -110,3 +113,33 @@ def model_params_from_numpy(model, tree: Dict[str, Any]) -> None:
     with torch.no_grad():
         for path, param in params.items():
             param.copy_(loaded[path])
+
+
+def train_state_from_numpy(state, tree):
+    """Load a training state held as numpy leaves (``tree``: anything with
+    the ``TrainState`` layout, ``params``, ``opt.step/m/v/master`` and
+    ``comp`` residuals, NamedTuples and dicts as the JAX package builds it)
+    into ``state``, the port's ``TrainState``. The model's parameters are
+    written in place; the returned state holds new tensors for the rest, on
+    the device of the leaf they replace. Every key, shape and dtype must
+    match ``state``'s: a missing, extra or mismatched leaf raises
+    ``ValueError`` and nothing is loaded."""
+    have = flatten_with_paths(state)
+    given = flatten_with_paths(tree)
+    if set(have) != set(given):
+        raise ValueError(f"state leaves differ: missing {sorted(set(have) - set(given))}, "
+                         f"unknown {sorted(set(given) - set(have))}")
+    loaded = {}
+    for key, leaf in have.items():
+        arr = np.asarray(given[key])
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"{key}: shape {tuple(arr.shape)} != {tuple(leaf.shape)}")
+        if arr.dtype.name != str(leaf.dtype).removeprefix("torch."):
+            raise ValueError(f"{key}: dtype {arr.dtype.name} != {leaf.dtype}")
+        loaded[key] = _tensor_from_numpy(arr).to(leaf.device)
+    with torch.no_grad():
+        for key, leaf in have.items():
+            if isinstance(leaf, torch.nn.Parameter):
+                leaf.copy_(loaded[key])
+                loaded[key] = leaf
+    return unflatten_with_paths(state, loaded)

@@ -1,12 +1,23 @@
 # Data-plane distribution: the scrub farm (one equal shard of a batch per
-# device) and elastic pool resizing driven by the autoscaler. The training
-# plane's gradient compression (int8/top-k with error feedback) comes with
-# the port of the LM stack and is not here yet.
+# device), elastic pool resizing driven by the autoscaler, and gradient
+# compression (int8/top-k with error feedback) for the training plane.
 from repro_torch.distributed.scrub_farm import ScrubFarm, bucket_by_resolution
 from repro_torch.distributed.elastic import ElasticFarmController
+from repro_torch.distributed.compression import (
+    int8_compress,
+    int8_decompress,
+    topk_compress,
+    topk_decompress,
+    CompressionState,
+)
 
 __all__ = [
     "ScrubFarm",
     "bucket_by_resolution",
     "ElasticFarmController",
+    "int8_compress",
+    "int8_decompress",
+    "topk_compress",
+    "topk_decompress",
+    "CompressionState",
 ]

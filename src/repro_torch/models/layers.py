@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.model import ModelConfig
 from repro_torch.models.spec import TensorSpec
@@ -89,6 +90,17 @@ def head_matrix(p: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ------------------------------------------------- chunked cross-entropy
+def _ce_chunk(xs: torch.Tensor, head: torch.Tensor, ls: torch.Tensor):
+    """(sum of lse - gold over the valid labels, their count) of one chunk;
+    its logits are float32."""
+    logits = matmul(xs, head).float()                          # (B, C, V)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
+    gold = torch.gather(logits, -1, ls.clamp_min(0)[..., None])[..., 0]
+    valid = ls >= 0
+    return torch.sum(torch.where(valid, lse - gold, 0.0)), torch.sum(valid)
+
+
 def chunked_ce_loss(
     x: torch.Tensor,           # (B, S, d) final hidden states
     head: torch.Tensor,        # (d, V)
@@ -96,22 +108,23 @@ def chunked_ce_loss(
     chunk: int,
 ) -> torch.Tensor:
     """Sequence-chunked softmax CE: never materializes (B, S, V) logits.
-    Forward only; the logits of a chunk are float32."""
+    While autograd records, each chunk is checkpointed: the backward pass
+    recomputes its logits, so one chunk's logits are live at a time."""
     B, S, d = x.shape
     if S % chunk:
         pad = chunk - S % chunk
         x = F.pad(x, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-1)
         S += pad
+    grad = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     count = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(S // chunk):
         xs, ls = x[:, c * chunk:(c + 1) * chunk], labels[:, c * chunk:(c + 1) * chunk]
-        logits = matmul(xs, head).float()                      # (B, C, V)
-        m = torch.amax(logits, dim=-1, keepdim=True)
-        lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
-        gold = torch.gather(logits, -1, ls.clamp_min(0)[..., None])[..., 0]
-        valid = ls >= 0
-        total = total + torch.sum(torch.where(valid, lse - gold, 0.0))
-        count = count + torch.sum(valid)
+        if grad:
+            t, n = checkpoint(_ce_chunk, xs, head, ls, use_reentrant=False, preserve_rng_state=False)
+        else:
+            t, n = _ce_chunk(xs, head, ls)
+        total = total + t
+        count = count + n
     return total / torch.clamp_min(count, 1.0)

@@ -9,21 +9,31 @@
 Parameters are registered as stacked tensors under the dotted paths of the
 reference's parameter tree (``layers.attn.wq`` of shape (L, d, H*hd),
 ``groups.mamba.in_proj``, ``shared.attn.wq``, ...); the layer loops run in
-Python over the stacked leading axis. ``cfg.remat`` and ``cfg.scan_unroll``
-do nothing in a forward pass. Decode writes its cache in place.
+Python over views of the stacked leading axis (``unbind``: one autograd node
+a leaf, whose backward stacks the layers' gradients once).
+
+Under autograd the loss honours ``cfg.remat`` per layer (per group for the
+hybrid), as the reference's ``jax.checkpoint`` does: ``"full"`` keeps only
+each layer's input and recomputes the layer in the backward pass,
+``"dots"`` keeps the outputs of the plain (non-batched) matmuls and
+recomputes the rest, ``"none"`` keeps everything. Without grad (prefill,
+decode, an eval loss) nothing is checkpointed. ``cfg.scan_unroll`` does
+nothing. Decode writes its cache in place.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.config.model import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks, ssm
 from repro_torch.models.layers import chunked_ce_loss, embed_specs, embed_tokens, head_matrix, matmul, rms_norm
-from repro_torch.models.spec import SpecTree, TensorSpec, tree_init, tree_map
+from repro_torch.models.spec import SpecTree, TensorSpec, tree_init, tree_items, tree_map
 
 ACT_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -36,6 +46,34 @@ def _stack(specs: SpecTree, n: int, axis: str = "layers") -> SpecTree:
 def _at(tree: Dict[str, Any], *idx: int) -> Dict[str, Any]:
     """One layer's slice of a stacked parameter tree (views)."""
     return tree_map(lambda t: t[idx], tree)
+
+
+def _unstack(tree: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """A stacked tree's per-index views along its leading axis."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    n = len(next(leaf for _, leaf in tree_items(parts)))
+    return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
+
+
+# the plain matmuls: what ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+# keeps (a batched einsum lowers to bmm and is recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under the config's remat policy while autograd records."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn
+    kw: Dict[str, Any] = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    elif policy != "full":
+        raise ValueError(f"unknown remat policy {policy!r}")
+    return lambda *args: checkpoint(fn, *args, **kw)
 
 
 def _module(tree: Dict[str, Any]) -> nn.Module:
@@ -158,7 +196,8 @@ class Model(nn.Module):
 
     # ================================================================ loss
     def loss(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
-        """Forward loss: chunked CE (+ the MoE aux loss)."""
+        """Chunked CE (+ the MoE aux loss); differentiable, ``cfg.remat``
+        applied per layer while autograd records."""
         cfg, params = self.cfg, self.params()
         labels = self._input(batch["labels"]).long()
         if cfg.family == "encoder":
@@ -182,51 +221,69 @@ class Model(nn.Module):
     # ============================================================= backbone
     def _stack_forward(self, params, x, positions, *, want_cache: bool):
         """The layer stack over a full sequence: (x, aux, cache); the cache
-        (sized to the sequence) is filled only when ``want_cache``."""
+        (sized to the sequence) is filled only when ``want_cache``. Each
+        layer (hybrid: each group) runs under ``cfg.remat``."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         cache: Dict[str, Any] = {}
         if cfg.family in ("dense", "vlm", "encoder", "moe"):
+            if cfg.family == "moe":
+                def body(h, lp):
+                    return blocks.moe_layer_prefill(lp, cfg, h, positions)
+            else:
+                def body(h, lp):
+                    h, kv = blocks.dense_layer_prefill(lp, cfg, h, positions)
+                    return h, kv, None
+
+            layer = _remat(body, cfg.remat)
             ks, vs = [], []
-            for i in range(cfg.n_layers):
-                lp = _at(params["layers"], i)
-                if cfg.family == "moe":
-                    x, (k, v), a = blocks.moe_layer_prefill(lp, cfg, x, positions)
+            for lp in _unstack(params["layers"]):
+                x, (k, v), a = layer(x, lp)
+                if a is not None:
                     aux = aux + a
-                else:
-                    x, (k, v) = blocks.dense_layer_prefill(lp, cfg, x, positions)
                 if want_cache:
                     ks.append(k)
                     vs.append(v)
             if want_cache:
                 cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
         elif cfg.family == "ssm":
-            hs, convs = [], []
-            for i in range(cfg.n_layers):
-                lp = _at(params["layers"], i)
-                pre = rms_norm(x, lp["ln"], cfg.norm_eps)
+            def body(h, lp):
+                pre = rms_norm(h, lp["ln"], cfg.norm_eps)
                 out, h_last = ssm.mamba1_forward(lp["mamba"], cfg, pre)
+                return h + out, h_last, self._conv_tail(pre, lp) if want_cache else None
+
+            layer = _remat(body, cfg.remat)
+            hs, convs = [], []
+            for lp in _unstack(params["layers"]):
+                x, h_last, conv = layer(x, lp)
                 if want_cache:
                     hs.append(h_last)
-                    convs.append(self._conv_tail(pre, lp))
-                x = x + out
+                    convs.append(conv)
             if want_cache:
                 cache = {"ssm": torch.stack(hs), "conv": torch.stack(convs)}
         elif cfg.family == "hybrid":
             e0 = x  # concat-skip source (zamba trick)
             G, A = cfg.n_shared_attn(), cfg.attn_every
-            hs, convs, ks, vs = [], [], [], []
-            for g in range(G):
-                for a in range(A):
-                    lp = _at(params["groups"], g, a)
-                    pre = rms_norm(x, lp["ln"], cfg.norm_eps)
+
+            def group(h, subs):
+                hs, convs = [], []
+                for lp in subs:
+                    pre = rms_norm(h, lp["ln"], cfg.norm_eps)
                     out, h_last = ssm.mamba2_forward(lp["mamba"], cfg, pre)
                     if want_cache:
                         hs.append(h_last)
                         convs.append(self._conv_tail(pre, lp))
-                    x = x + out
-                x, (k, v) = blocks.shared_attn_prefill(params["shared"], cfg, x, e0, positions)
+                    h = h + out
+                h, kv = blocks.shared_attn_prefill(params["shared"], cfg, h, e0, positions)
+                return h, hs, convs, kv
+
+            layer = _remat(group, cfg.remat)
+            hs, convs, ks, vs = [], [], [], []
+            for gp in _unstack(params["groups"]):
+                x, h_g, c_g, (k, v) = layer(x, _unstack(gp))
                 if want_cache:
+                    hs.extend(h_g)
+                    convs.extend(c_g)
                     ks.append(k)
                     vs.append(v)
             if want_cache:

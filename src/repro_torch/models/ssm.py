@@ -64,12 +64,13 @@ def _mamba1_core(p: dict, cfg: ModelConfig, x: torch.Tensor, h0: torch.Tensor):
         dt_c, B_c, C_c, x_c = (t[:, c0:c0 + Q] for t in (dt, Bm, Cm, xf))
         dA = torch.exp(dt_c[..., None] * A)                   # (B,Q,di,N)
         dBx = (dt_c * x_c)[..., None] * B_c[:, :, None, :]    # (B,Q,di,N)
-        # intra-chunk linear recurrence h_t = dA_t h_{t-1} + dBx_t
-        h_all = torch.empty_like(dA)
+        # intra-chunk linear recurrence h_t = dA_t h_{t-1} + dBx_t (a list
+        # and one stack: autograd keeps no per-step copy of a buffer)
+        steps = []
         for t in range(Q):
             h = dA[:, t] * h + dBx[:, t]
-            h_all[:, t] = h
-        ys.append(torch.einsum("bqn,bqdn->bqd", C_c, h_all))
+            steps.append(h)
+        ys.append(torch.einsum("bqn,bqdn->bqd", C_c, torch.stack(steps, dim=1)))
     y = torch.cat(ys, dim=1) + xf * p["D"]
     return y, h
 

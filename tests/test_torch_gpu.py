@@ -744,3 +744,153 @@ def test_lm_defaults_to_the_card(cuda, monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--requests", "1"])
+
+
+# -------------------------------------------------------------- LM training
+TRAIN_FAMILIES = ["qwen2-0.5b", "h2o-danube-1.8b", "olmoe-1b-7b", "falcon-mamba-7b", "zamba2-2.7b",
+                  "llava-next-34b", "hubert-xlarge"]
+TRAIN_TOL = dict(atol=1e-4, rtol=1e-4)  # losses, card against CPU (f32 activations, TF32 off)
+
+
+def _train_pair(cfg, cuda, seed=0, compression=False):
+    """The same weights and optimizer state on the CPU and on the card."""
+    from repro_torch.training import train_state_init
+
+    cpu, card = _lm_pair(cfg, cuda, seed)
+    return [(m, train_state_init(m, compression=compression)) for m in (cpu, card)]
+
+
+def _train_losses(model, state, batches, compression=False, microbatches=1, lr=1e-3, warmup=1):
+    from repro_torch.training import cosine_schedule, make_train_step
+
+    step = make_train_step(model, cosine_schedule(lr, warmup, 10), compression=compression,
+                           microbatches=microbatches)
+    losses, gnorms = [], []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    return state, losses, gnorms
+
+
+def _flat(tree):
+    from repro_torch.training.checkpoint import flatten_with_paths
+
+    return flatten_with_paths(tree)
+
+
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_train_reduced_on_card_equals_cpu(cuda, arch):
+    """(m3) as a test: 3 steps of every family, card against CPU."""
+    from repro_torch.config import get_arch
+    from repro_torch.training import SyntheticTokenPipeline
+
+    cfg = get_arch(arch).reduced()
+    pipe = SyntheticTokenPipeline(cfg, 2, 32, seed=1)
+    batches = [pipe.get_batch(i) for i in range(3)]
+    before = dict(LAUNCHES)
+    (mc, sc), (mg, sg) = _train_pair(cfg, cuda)
+    _, want, _ = _train_losses(mc, sc, batches)
+    _, got, _ = _train_losses(mg, sg, batches)
+    np.testing.assert_allclose(got, want, **TRAIN_TOL)
+    assert got[-1] < got[0]
+    assert all(p.device == cuda for p in mg.parameters())
+    assert dict(LAUNCHES) == before  # training launches none of the port's kernels
+
+
+def test_train_full_width_f32_on_card_equals_cpu(cuda):
+    """(m2) as a test: qwen2-0.5b at full width in f32, 4 layers, 2 steps of
+    B 2 x S 128; loss and gnorm within 1e-4 relative, every weight's f32
+    master within 1e-4 relative per leaf, the zero-initialised QKV biases
+    (AdamW's normalised steps only) within 2 x the summed learning rate."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.training import SyntheticTokenPipeline
+
+    cfg = dataclasses.replace(get_arch("qwen2-0.5b"), dtype="float32", n_layers=4)
+    pipe = SyntheticTokenPipeline(cfg, 2, 128, seed=0)
+    batches = [pipe.get_batch(i) for i in range(2)]
+    (mc, sc), (mg, sg) = _train_pair(cfg, cuda, seed=2)
+    sc, lc, gc = _train_losses(mc, sc, batches, lr=3e-4, warmup=5)
+    sg, lg, gg = _train_losses(mg, sg, batches, lr=3e-4, warmup=5)
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    np.testing.assert_allclose(gg, gc, rtol=1e-4)
+    # the f32 masters (the bf16 weights round them); the zero-initialised QKV
+    # biases hold only AdamW's normalised steps: within 2 x the summed lr
+    from repro_torch.models.spec import tree_items
+
+    lr_sum = 0.0 + 3e-4 / 5
+    zero_init = {k.replace(".", "/") for k, spec in tree_items(mg.param_specs()) if spec.init == "zeros"}
+    assert zero_init == {"layers/attn/bq", "layers/attn/bk", "layers/attn/bv"}
+    cpu_master = _flat(sc.opt.master)
+    for key, p in _flat(sg.opt.master).items():
+        diff = p.double().cpu() - cpu_master[key].double()
+        if key in zero_init:
+            assert float(diff.abs().max()) <= 2 * lr_sum, key
+        else:
+            assert float(torch.linalg.norm(diff) / torch.linalg.norm(cpu_master[key].double())) <= 1e-4, key
+
+
+def test_train_microbatches_and_compression_on_card(cuda, tmp_path):
+    from repro_torch.config import get_arch
+    from repro_torch.launch import train
+    from repro_torch.training import SyntheticTokenPipeline
+
+    cfg = get_arch("qwen2-0.5b").reduced()
+    batch = SyntheticTokenPipeline(cfg, 4, 64, seed=3).get_batch(1)
+    losses = {}
+    for n in (1, 2):
+        _, (model, state) = _train_pair(cfg, cuda, seed=1)
+        losses[n] = _train_losses(model, state, [batch], microbatches=n, warmup=0)[1][0]
+    assert losses[2] == pytest.approx(losses[1], rel=1e-5)
+    (mc, sc), (mg, sg) = _train_pair(cfg, cuda, seed=4, compression=True)
+    pipe = SyntheticTokenPipeline(cfg, 2, 64, seed=2)
+    batches = [pipe.get_batch(i) for i in range(3)]
+    np.testing.assert_allclose(_train_losses(mg, sg, batches, compression=True)[1],
+                               _train_losses(mc, sc, batches, compression=True)[1], **TRAIN_TOL)
+    out = train.main(["--arch", "qwen2-0.5b", "--steps", "3", "--batch", "4", "--seq", "64",
+                      "--compression", "--ckpt-dir", str(tmp_path)])
+    assert out["device"] == "cuda:0" and math.isfinite(out["final_loss"])
+
+
+def test_train_checkpoint_on_card(cuda, tmp_path):
+    """(m4) as a test: save at step 2 on the card, restore into a fresh
+    state bit for bit, 2 more steps equal to the uninterrupted run."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.training import CheckpointManager, SyntheticTokenPipeline, train_state_init
+    from repro_torch.training.checkpoint import flatten_with_paths
+
+    cfg = get_arch("qwen2-0.5b").reduced()
+    pipe = SyntheticTokenPipeline(cfg, 2, 64, seed=9)
+    batches = [pipe.get_batch(i) for i in range(4)]
+
+    def fresh(seed):
+        model = build_model(cfg, cuda, generator=torch.Generator().manual_seed(seed))
+        return model, train_state_init(model, compression=True)
+
+    _, whole, _ = _train_losses(*fresh(5), batches, compression=True)
+    model, state = fresh(5)
+    state, first, _ = _train_losses(model, state, batches[:2], compression=True)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(2, state)
+    saved = {k: v.detach().clone() for k, v in flatten_with_paths(state).items()}
+    other, template = fresh(77)
+    restored, step, _ = mgr.restore(template)
+    assert step == 2
+    for k, v in flatten_with_paths(restored).items():
+        assert v.device == cuda and torch.equal(v, saved[k]), k
+    _, rest, _ = _train_losses(other, restored, batches[2:], compression=True)
+    np.testing.assert_allclose(first + rest, whole, **TRAIN_TOL)
+
+
+def test_train_defaults_to_the_card(cuda, tmp_path, monkeypatch):
+    from repro_torch.launch import train
+
+    out = train.main(["--arch", "qwen2-0.5b", "--steps", "2", "--batch", "2", "--seq", "32",
+                      "--ckpt-dir", str(tmp_path)])
+    assert out["device"] == "cuda:0" and math.isfinite(out["final_loss"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "qwen2-0.5b", "--steps", "1", "--ckpt-dir", str(tmp_path / "x")])

@@ -61,7 +61,8 @@ def test_every_kernel_source_names_the_tpu_kernel_it_replaces():
 
 def test_example_twins_are_scanned():
     twins = sorted(p.name for p in (ROOT / "examples").glob("*_torch.py"))
-    assert twins == ["deid_at_scale_torch.py", "quickstart_torch.py", "serve_lm_torch.py"]
+    assert twins == ["deid_at_scale_torch.py", "deid_to_training_torch.py", "quickstart_torch.py",
+                     "serve_lm_torch.py", "train_lm_torch.py"]
 
 
 def test_resolve_device():
@@ -115,5 +116,9 @@ def test_package_lists_its_modules():
                    "repro_torch.models.attention", "repro_torch.models.moe",
                    "repro_torch.models.ssm", "repro_torch.models.blocks",
                    "repro_torch.models.model", "repro_torch.serving.engine",
-                   "repro_torch.launch.serve"):
+                   "repro_torch.launch.serve",
+                   "repro_torch.distributed.compression", "repro_torch.training",
+                   "repro_torch.training.optimizer", "repro_torch.training.data",
+                   "repro_torch.training.checkpoint", "repro_torch.training.train_step",
+                   "repro_torch.launch.train"):
         assert needed in names
