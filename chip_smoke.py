@@ -132,8 +132,22 @@ Phases, in order; any failure raises and exits non-zero:
             ``examples/deid_to_training_torch.py`` on the card: scrub and
             phi_detect launched (counts read around it), delivered pixels,
             audit and 20 losses equal to its ``--device cpu`` run. (m1)-(m4)
-            launch none of the port's kernels. (l) and (m) run after phase
-            4's timings, last before the result lines.
+            launch none of the port's kernels.
+            (n) LM serving on a mesh, plain PyTorch on DTensors: one NCCL
+            rank a card, spawned by the script; (n1) qwen2-0.5b at full width
+            in bf16 on (data 1, model every card), each rank drawing its own
+            weight shards from seed 0 (``place_model``), (l)'s 8 requests
+            through ``ServeEngine``; prints prefill ms, decode ms a step,
+            tokens/s, each card's peak and one decode step's collectives
+            (none may all-gather a parameter); the f32 model against the same
+            weights gathered unsharded on cuda:0 (logits within 1e-3, greedy
+            tokens equal). With four cards or more, on (data 1, model 4):
+            (n2) qwen1.5-110b at full width cut to 2 layers in f32 against
+            its weights gathered on rank 0; (n3) qwen1.5-110b at full width
+            and depth in bf16 (55.6 GB of weights a card), timed as (n1)
+            beside its bounds. With fewer it says so and shrinks nothing.
+            (l), (m) and (n) run after phase 4's timings, last before the
+            result lines.
 4. result — fused and textdetect timed at every shape their wrappers
             counted on the cold and the detector path, and at one block, and
             bitmap at each shape it was counted at on path (e);
@@ -165,8 +179,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12     # float32 outside the tensor cores (data sheet)
+from repro_torch.launch import hw  # noqa: E402  (the H100 SXM's data-sheet figures)
+
+HBM_BYTES_PER_S = hw.HBM_BW        # device memory rate
+FP32_OPS_PER_S = hw.PEAK_FLOPS_F32  # float32 outside the tensor cores
 # int32 ALU rate: Hopper's SM has 64 INT32 lanes to 128 FP32 lanes, so half
 # of the float32 peak
 INT32_OPS_PER_S = FP32_OPS_PER_S / 2
@@ -1616,7 +1632,7 @@ LM_ARCH = "qwen2-0.5b"
 LM_REQUESTS = 8
 LM_PROMPT_RANGE = (64, 512)
 LM_MAX_NEW = 32
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor rate (data sheet)
+BF16_OPS_PER_S = hw.PEAK_FLOPS_BF16  # dense bf16 tensor rate
 # card against CPU, every family reduced: dense, sliding window, MoE, SSM,
 # hybrid through ServeEngine; the VLM and the encoder through prefill
 LM_SERVED = ("qwen2-0.5b", "h2o-danube-1.8b", "mixtral-8x22b", "olmoe-1b-7b",
@@ -2228,6 +2244,344 @@ def run_train_path() -> dict:
     log(f"training (m5), de-id -> training twin, card against CPU: {json.dumps(twin)}")
     log(f"training (m): {time.perf_counter() - t0:.1f} s")
     return {"bf16": full, "f32": f32, "families": fam, "checkpoint": ckpt, "deid": twin}
+
+
+# ------------------------------------------- phase 3: LM serving on a mesh (n)
+# path (n): the LM serving path over a mesh of cards, one NCCL rank a card,
+# spawned by the script. (n1) on every host: qwen2-0.5b at full width in bf16
+# on (data 1, model every card), its weights drawn shard by shard from seed 0
+# on the ranks, serving (l)'s 8 requests; the f32 model (seed 1) against the
+# same weights gathered unsharded on cuda:0. With four cards or more, on
+# (data 1, model 4): (n2) qwen1.5-110b at full width cut to 2 layers in f32
+# against the same weights gathered on rank 0; (n3) qwen1.5-110b at full
+# width and depth (80 layers) in bf16, timed. The model is never shrunk to fit
+# fewer cards.
+SHARDED_ARCH = "qwen1.5-110b"
+SHARDED_CARDS = 4
+SHARDED_PARITY_LAYERS = 2
+SHARDED_PARITY_STEPS = 4
+SHARDED_TIMEOUT_S = 900
+
+
+def _lm_requests(cfg):
+    """(l)'s 8 requests: prompts of 64-512 tokens from numpy seed 0."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LM_PROMPT_RANGE[0], LM_PROMPT_RANGE[1] + 1, LM_REQUESTS)
+    return [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+
+
+def _padded(prompts):
+    P = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), P), np.int64)
+    for i, prompt in enumerate(prompts):
+        toks[i, P - len(prompt):] = prompt
+    return toks
+
+
+def _mesh_model(cfg, mesh, seed: int):
+    """``cfg`` placed on ``mesh`` by ``param_shardings`` (fsdp off), each
+    rank drawing only its own shard of each leaf from ``seed``."""
+    from repro_torch.launch.shardings import param_shardings, place_model
+    from repro_torch.models import build_model
+
+    meta = build_model(cfg, "meta")
+    return place_model(meta, param_shardings(meta, mesh, fsdp=False), seed=seed)
+
+
+def _mesh_rules(mesh, cfg, B: int, S: int):
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch.act_sharding import activation_sharding
+    from repro_torch.launch.shardings import activation_rules
+
+    return activation_sharding(activation_rules(mesh, ShapeConfig("serve", S, B, "decode"), cfg))
+
+
+def _mesh_step_comms(model, toks) -> dict:
+    """One decode step after a prefill of ``toks``, under ``CommDebugMode``
+    and ``CollectiveLog``: collective counts and bytes, and the parameters
+    whose shards were all-gathered (must be none)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch.shardings import CollectiveLog
+    from repro_torch.serving import ServeEngine
+
+    logits, cache = model.prefill({"tokens": toks})
+    P = toks.shape[1]
+    cache = ServeEngine._grow_cache(cache, P, P + 1, model)
+    nxt = logits.full_tensor().argmax(-1)
+    log_ = CollectiveLog()
+    torch.cuda.synchronize()
+    with CommDebugMode() as comm, log_:
+        model.decode_step(nxt, cache, P)
+    torch.cuda.synchronize()
+    return {"comm_debug_counts": {str(k): v for k, v in comm.get_comm_counts().items()},
+            "counts": log_.counts(), "collectives": len(log_.calls), "bytes": log_.bytes(),
+            "gathered_params": log_.gathered_params(model)}
+
+
+def _mesh_parity(placed, full, toks, steps: int) -> dict:
+    """Prefill + ``steps`` greedy decode steps of ``toks`` on the placed model
+    (every rank) and on ``full`` (rank 0 only; None elsewhere), fed the
+    placed model's greedy tokens: f32 logits within LM_FULL_TOL, tokens
+    equal, checked on rank 0."""
+    from repro_torch.serving import ServeEngine
+
+    P = toks.shape[1]
+    got, cache = placed.prefill({"tokens": toks})
+    cache = ServeEngine._grow_cache(cache, P, P + steps, placed)
+    want = ref_cache = None
+    if full is not None:
+        want, ref_cache = full.prefill({"tokens": toks})
+        ref_cache = ServeEngine._grow_cache(ref_cache, P, P + steps)
+    errs, toks_out = [], []
+    for step in range(steps + 1):
+        g = got.full_tensor().float().cpu().numpy()
+        tok = g.argmax(-1)
+        if full is not None:
+            w = want.float().cpu().numpy()
+            np.testing.assert_allclose(g, w, **LM_FULL_TOL, err_msg=f"sharded f32, step {step}")
+            assert np.array_equal(tok, w.argmax(-1)), f"sharded greedy tokens differ at step {step}"
+            errs.append(float(np.abs(g - w).max()))
+        toks_out.append(tok.tolist())
+        if step < steps:
+            got, cache = placed.decode_step(tok, cache, P + step)
+            if full is not None:
+                want, ref_cache = full.decode_step(tok, ref_cache, P + step)
+    return {"max_abs_err": errs, "tokens": toks_out}
+
+
+def _mesh_timed_serve(model, prompts, max_new) -> dict:
+    """``_lm_timed_serve`` on a placed model, each rank timing its own steps
+    between ``torch.cuda.synchronize()`` calls (the steps' collectives keep
+    the ranks in step)."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    return _lm_timed_serve(model, prompts, max_new)
+
+
+def _sharded_small(rank: int, world: int) -> dict:
+    """(n1): qwen2-0.5b on (data 1, model ``world``)."""
+    import gc
+
+    from repro_torch.config import get_arch
+    from repro_torch.launch.mesh import make_mesh, mesh_info
+    from repro_torch.launch.shardings import gather_model
+
+    mesh = make_mesh((1, world), ("data", "model"))
+    cfg = get_arch(LM_ARCH)
+    prompts = _lm_requests(cfg)
+    out = {"mesh": mesh_info(mesh)}
+    t0 = time.perf_counter()
+    model = _mesh_model(cfg, mesh, 0)
+    torch.cuda.synchronize()
+    out["place_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in model.parameters())
+    assert out["params"] == cfg.param_count()
+    with _mesh_rules(mesh, cfg, LM_REQUESTS, max(len(p) for p in prompts)):
+        _mesh_timed_serve(model, prompts, 4)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        run = _mesh_timed_serve(model, prompts, LM_MAX_NEW)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        assert all(len(t) == LM_MAX_NEW and all(0 <= x < cfg.vocab_size for x in t) for t in run["tokens"])
+        out.update(prefill_ms=run["prefill"][0] * 1e3,
+                   decode_ms_per_step=statistics.median(run["decode"]) * 1e3,
+                   decode_ms_min=min(run["decode"]) * 1e3, decode_ms_max=max(run["decode"]) * 1e3,
+                   serve_wall_s=run["wall_s"], new_tokens=sum(len(t) for t in run["tokens"]),
+                   tokens_first=run["tokens"][0][:8])
+        out["tokens_per_s"] = out["new_tokens"] / out["serve_wall_s"]
+        out["decode_step_comms"] = _mesh_step_comms(model, _padded(prompts))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32: the same architecture, its shards drawn from seed 1, against the
+    # same weights gathered unsharded on cuda:0
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    placed = _mesh_model(cfg32, mesh, 1)
+    full = gather_model(placed)
+    if rank != 0:
+        del full
+        full = None
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 64))
+    with _mesh_rules(mesh, cfg32, 2, 64):
+        out["f32"] = _mesh_parity(placed, full, toks, SHARDED_PARITY_STEPS)
+    return out
+
+
+def _sharded_large(rank: int, world: int) -> dict:
+    """(n2) and (n3): qwen1.5-110b on (data 1, model 4)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.config import get_arch
+    from repro_torch.launch.mesh import make_mesh, mesh_info
+    from repro_torch.launch.shardings import gather_model
+
+    mesh = make_mesh((1, world), ("data", "model"))
+    cfg = get_arch(SHARDED_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size) == \
+        (80, 8192, 64, 8, 49152, 152064)
+    prompts = _lm_requests(cfg)
+    toks = _padded(prompts)
+    B, P = toks.shape
+    out = {"mesh": mesh_info(mesh)}
+
+    # (n2) parity: full width, 2 layers, f32 activations (the spec's bf16
+    # weights), against the same weights gathered on rank 0
+    cfg2 = dataclasses.replace(cfg, n_layers=SHARDED_PARITY_LAYERS, dtype="float32")
+    t0 = time.perf_counter()
+    placed = _mesh_model(cfg2, mesh, 0)
+    full = gather_model(placed)
+    if rank != 0:
+        del full
+        full = None
+    out["parity_params"] = sum(p.numel() for p in placed.parameters())
+    out["parity_weight_bytes_unsharded"] = sum(p.numel() * p.element_size() for p in placed.parameters())
+    with _mesh_rules(mesh, cfg2, B, P):
+        out["parity"] = _mesh_parity(placed, full, toks, SHARDED_PARITY_STEPS)
+    out["parity_s"] = time.perf_counter() - t0
+    del placed, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (n3) timed: full width and depth, bf16
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = _mesh_model(cfg, mesh, 0)
+    torch.cuda.synchronize()
+    out["place_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    assert n_params == cfg.param_count() == 111_209_914_368
+    local_weight_bytes = sum(p.to_local().numel() * p.element_size() for p in model.parameters())
+    out.update(params=n_params, weight_bytes_per_card=local_weight_bytes,
+               weights_peak_bytes=torch.cuda.max_memory_allocated())
+    with _mesh_rules(mesh, cfg, B, P):
+        _mesh_timed_serve(model, prompts, 2)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        run = _mesh_timed_serve(model, prompts, LM_MAX_NEW)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        assert all(len(t) == LM_MAX_NEW and all(0 <= x < cfg.vocab_size for x in t) for t in run["tokens"])
+        out["decode_step_comms"] = _mesh_step_comms(model, toks)
+    # bounds: prefill 2 x params x B x P over 4 cards' dense bf16 rate; a
+    # decode step reads each card's weight shards and its share of the K/V
+    # up to that step once at the HBM rate
+    KV, hd, L = cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    kv_bytes = [2 * L * B * (P + s) * KV * hd * 2 // world for s in range(1, LM_MAX_NEW)]
+    decode_bound = [(local_weight_bytes + b) / HBM_BYTES_PER_S * 1e3 for b in kv_bytes]
+    out.update(B=B, P=P, max_new=LM_MAX_NEW,
+               prefill_ms=run["prefill"][0] * 1e3,
+               prefill_bound_ms=2 * n_params * B * P / (world * BF16_OPS_PER_S) * 1e3,
+               decode_ms_per_step=statistics.median(run["decode"]) * 1e3,
+               decode_ms_min=min(run["decode"]) * 1e3, decode_ms_max=max(run["decode"]) * 1e3,
+               decode_bound_ms_per_step=statistics.median(decode_bound),
+               serve_wall_s=run["wall_s"], new_tokens=sum(len(t) for t in run["tokens"]),
+               tokens_first=run["tokens"][0][:8])
+    out["tokens_per_s"] = out["new_tokens"] / out["serve_wall_s"]
+    out["prefill_pct_of_bound"] = 100 * out["prefill_bound_ms"] / out["prefill_ms"]
+    out["decode_pct_of_bound"] = 100 * out["decode_bound_ms_per_step"] / out["decode_ms_per_step"]
+    return out
+
+
+def _sharded_rank(rank: int, world: int, init: str, fn_name: str, out_dir: str) -> None:
+    """A spawned rank: one card, an NCCL group met through ``init``; runs
+    ``fn_name`` and writes its result (or the error) and peak memory to
+    ``out_dir``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import LAUNCHES
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=rank, world_size=world,
+                            device_id=torch.device("cuda", rank))
+    try:
+        result = globals()[fn_name](rank, world)
+        assert not any(LAUNCHES.values()), f"path (n) launched port kernels: {dict(LAUNCHES)}"
+    except Exception:  # recorded for the parent, which fails the path
+        result = {"error": traceback.format_exc()}
+    result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(result))
+    dist.destroy_process_group()
+
+
+def _sharded_world(fn_name: str, world: int) -> dict:
+    """Spawn ``world`` ranks running ``fn_name``; returns rank 0's result
+    with every rank's peak memory. Kills the ranks at SHARDED_TIMEOUT_S."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        ctx = mp.start_processes(_sharded_rank, args=(world, f"{tmp}/init", fn_name, tmp),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.perf_counter() + SHARDED_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                assert time.perf_counter() < deadline, f"{fn_name}: ranks still running at the time limit"
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(world)]
+    for r, res in enumerate(ranks):
+        assert "error" not in res, f"{fn_name} rank {r}:\n{res['error']}"
+    out = ranks[0]
+    out["max_memory_allocated_by_rank"] = [res["max_memory_allocated"] for res in ranks]
+    if "peak_bytes" in out:
+        out["peak_bytes_by_rank"] = [res["peak_bytes"] for res in ranks]
+    return out
+
+
+def run_sharded_path() -> dict:
+    """Path (n), LM serving on a mesh: (n1) on every card the host has;
+    (n2)/(n3) qwen1.5-110b over four cards where there are four. Both parts
+    run; the first failure is raised after them."""
+    from repro_torch.kernels import LAUNCHES
+
+    before = dict(LAUNCHES)
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    out, failed = {}, []
+    try:
+        small = _sharded_world("_sharded_small", n)
+        comms = small["decode_step_comms"]
+        assert comms["gathered_params"] == [], f"(n1) all-gathered parameters: {comms['gathered_params']}"
+        log(f"lm on a mesh (n1), {LM_ARCH} full width bf16 over {n} card(s): {json.dumps(small)}")
+        log(f"lm on a mesh (n1): card {card_line()}; f32 logits max abs err against the same weights "
+            f"unsharded on cuda:0 by step {small['f32']['max_abs_err']} (atol/rtol 1e-3), greedy "
+            f"tokens equal; {time.perf_counter() - t0:.1f} s")
+        out["n1"] = small
+    except AssertionError as exc:
+        log(f"lm on a mesh (n1) FAILED: {exc}")
+        failed.append(exc)
+    if n < SHARDED_CARDS:
+        log(f"lm on a mesh (n2)/(n3): {SHARDED_ARCH} at full width needs {SHARDED_CARDS} cards "
+            f"(111,209,914,368 params, 222.4 GB in bf16); this host has {n}: not run, and the model "
+            f"is not shrunk to fit")
+    else:
+        t1 = time.perf_counter()
+        try:
+            large = _sharded_world("_sharded_large", SHARDED_CARDS)
+            comms = large["decode_step_comms"]
+            assert comms["gathered_params"] == [], f"(n3) all-gathered parameters: {comms['gathered_params']}"
+            log(f"lm on a mesh (n2)/(n3), {SHARDED_ARCH} over {SHARDED_CARDS} cards: {json.dumps(large)}")
+            log(f"lm on a mesh (n3): card {card_line()}; prefill {large['prefill_ms']:.2f} ms (bound "
+                f"{large['prefill_bound_ms']:.3f}), decode {large['decode_ms_per_step']:.2f} ms a step "
+                f"(bound {large['decode_bound_ms_per_step']:.3f}), {large['tokens_per_s']:.2f} tokens/s, "
+                f"peak by card {large['peak_bytes_by_rank']}, {comms['collectives']} collectives a "
+                f"decode step; {time.perf_counter() - t1:.1f} s")
+            out["n23"] = large
+        except AssertionError as exc:
+            log(f"lm on a mesh (n2)/(n3) FAILED: {exc}")
+            failed.append(exc)
+    if failed:
+        raise failed[0]
+    assert dict(LAUNCHES) == before, f"path (n) launched port kernels: {before} -> {dict(LAUNCHES)}"
+    log(f"lm on a mesh (n): {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ------------------------------------------------- phase 3: serving paths
@@ -2866,6 +3220,8 @@ def main() -> None:
     # training (m): qwen2-0.5b at full width, every family reduced, a
     # checkpoint, and the de-id -> training twin (scrub, phi_detect)
     run_train_path()
+    # LM serving on a mesh (n): every card, and qwen1.5-110b over four
+    run_sharded_path()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -9,6 +9,7 @@ from repro_torch.distributed.compression import (
     topk_compress,
     topk_decompress,
     CompressionState,
+    compressed_psum_int8,
 )
 
 __all__ = [
@@ -20,4 +21,5 @@ __all__ = [
     "topk_compress",
     "topk_decompress",
     "CompressionState",
+    "compressed_psum_int8",
 ]

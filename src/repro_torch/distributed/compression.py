@@ -62,3 +62,32 @@ def topk_compress(
 
 def topk_decompress(vals: torch.Tensor, idx: torch.Tensor, shape, size: int) -> torch.Tensor:
     return torch.zeros((size,), dtype=vals.dtype, device=vals.device).index_put_((idx,), vals).reshape(shape)
+
+
+# ------------------------------------------------- all-reduce composition
+def _group(group_or_mesh_axis):
+    """A process group from a group, a 1-D ``DeviceMesh`` or a
+    ``(DeviceMesh, axis name)`` pair; None is the default group."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if isinstance(group_or_mesh_axis, tuple):
+        mesh, axis = group_or_mesh_axis
+        return mesh.get_group(axis)
+    if isinstance(group_or_mesh_axis, DeviceMesh):
+        return group_or_mesh_axis.get_group()
+    return group_or_mesh_axis
+
+
+def compressed_psum_int8(grad: torch.Tensor, state: CompressionState, group_or_mesh_axis=None):
+    """int8-compress locally, all-reduce the dequantized payload over the
+    group (a mesh axis), return (mean, new state). The sum is taken with
+    ``ReduceOp.SUM`` and divided by the group's size (gloo has no ``AVG``).
+    The collective moves the dequantized float32 payload, as the
+    reference's does under XLA on the CPU."""
+    import torch.distributed as dist
+
+    q, scale, new_state = int8_compress(grad, state)
+    deq = int8_decompress(q, scale)
+    group = _group(group_or_mesh_axis)
+    dist.all_reduce(deq, op=dist.ReduceOp.SUM, group=group)
+    return deq / dist.get_world_size(group), new_state

@@ -1,0 +1,437 @@
+"""Sharding rules: logical axis names -> mesh axes, per (mesh, shape-kind).
+
+Layout (the reference's, rule for rule):
+  * params: TP over 'model' (heads / mlp / experts / vocab), layers stacked
+    dim replicated. Divisibility-aware: a dim that does not divide the axis
+    is sharded unevenly (DTensor's ``torch.chunk`` split, as GSPMD pads),
+    except the tiny dims that replicate (a vocab that does not divide tp,
+    experts fewer than tp).
+  * optimizer states: ZeRO-style, m/v/master sharded as the params.
+  * activations: batch over ('pod','data'); residual stream sequence-sharded
+    over 'model' between blocks (Megatron-SP, see act_sharding).
+  * decode caches: batch over ('pod','data') (long_500k: cache sequence over
+    ('pod','data') instead, batch=1), kv heads over 'model'.
+
+A pspec is a tuple with one entry per tensor dim (trailing dims may be
+left out): an axis name, a tuple of names (major to minor) or None, written
+as in ``jax.sharding.PartitionSpec`` (a one-name tuple is the name).
+:class:`NamedSharding` pairs one with a mesh and turns it into DTensor
+placements. The rule functions read only axis names and sizes, so they take
+a ``DeviceMesh`` or an ``AbstractMesh``.
+
+``place_model`` lays a model's parameters out as DTensors by such a tree
+(each rank drawing only its own shards, or keeping its chunk of weights it
+holds), ``gather_model`` makes the unsharded twin, and ``CollectiveLog``
+records the collectives a step makes and finds any parameter gathered.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.config.model import ModelConfig, ShapeConfig
+from repro_torch.launch.mesh import mesh_axes
+from repro_torch.models.spec import TensorSpec, tree_map
+
+PSpec = Tuple[Any, ...]
+
+
+def pspec(*entries) -> PSpec:
+    """A pspec with ``PartitionSpec``'s normalisation: a one-name tuple is
+    the name, an empty tuple is None."""
+    out = []
+    for e in entries:
+        if isinstance(e, (tuple, list)):
+            e = tuple(e)
+            e = None if not e else e[0] if len(e) == 1 else e
+        out.append(e)
+    return tuple(out)
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def to_placements(spec: PSpec, mesh) -> tuple:
+    """DTensor placements, one per mesh dim, of ``spec`` on ``mesh``: a
+    tensor dim over several mesh dims is ``Shard(d)`` on each of them, the
+    first named major, as in JAX (the names must follow the mesh's order)."""
+    names = list(mesh_axes(mesh))
+    placements = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"pspec entry {entry!r} does not follow the mesh's axis order {names}")
+        for i in idx:
+            if placements[i] != Replicate():
+                raise ValueError(f"mesh axis {names[i]!r} used twice in {spec!r}")
+            placements[i] = Shard(d)
+    return tuple(placements)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A pspec on a mesh (``jax.sharding.NamedSharding``)."""
+
+    mesh: Any
+    spec: PSpec
+
+    def placements(self) -> tuple:
+        return to_placements(self.spec, self.mesh)
+
+
+def _batch_axes(mesh) -> Tuple[str, ...]:
+    return ("pod", "data") if "pod" in mesh_axes(mesh) else ("data",)
+
+
+def logical_rules(cfg: ModelConfig, mesh) -> Dict[str, Optional[object]]:
+    """logical param-axis name -> mesh axis (or None)."""
+    tp = mesh_axes(mesh)["model"]
+    rules: Dict[str, Optional[object]] = {
+        "layers": None,
+        "sublayers": None,
+        # hubert's 504-cluster head doesn't divide tp=16 -> replicate (tiny)
+        "vocab": "model" if cfg.vocab_size % tp == 0 else None,
+        "embed": None,
+        "heads": "model",
+        # param tensors carry kv flattened as KV*hd
+        "kv": "model",
+        "ssm_inner": "model",
+        "ssm_heads": "model",
+    }
+    if cfg.family == "moe":
+        if cfg.n_experts % tp == 0:
+            rules["experts"] = "model"   # expert parallelism (olmoe: 64/16)
+            rules["mlp"] = None
+        else:
+            rules["experts"] = None      # few big experts (mixtral: 8 on 16)
+            rules["mlp"] = "model"       # -> TP inside each expert
+    else:
+        rules["mlp"] = "model"
+    return rules
+
+
+def spec_to_pspec(spec: TensorSpec, rules: Dict[str, Optional[object]]) -> PSpec:
+    return pspec(*[rules.get(a) if a is not None else None for a in spec.axes])
+
+
+_FSDP_CANDIDATES = ("embed", "mlp", "ssm_inner", "heads", "kv", "vocab")
+_FSDP_MIN_ELEMS = 1 << 20  # don't bother sharding small tensors
+
+
+def fsdp_pspec(spec: TensorSpec, rules: Dict[str, Optional[object]], mesh) -> PSpec:
+    """TP pspec + FSDP: the first large still-replicated logical dim of a big
+    tensor is sharded over 'data' (ZeRO-3-style storage)."""
+    base = [rules.get(a) if a is not None else None for a in spec.axes]
+    n_elems = 1
+    for d in spec.shape:
+        n_elems *= d
+    if n_elems >= _FSDP_MIN_ELEMS:
+        dp = mesh_axes(mesh)["data"]
+        for i, (a, assigned) in enumerate(zip(spec.axes, base)):
+            if assigned is None and a in _FSDP_CANDIDATES and spec.shape[i] % dp == 0:
+                base[i] = "data"
+                break
+    return pspec(*base)
+
+
+def param_shardings(model, mesh, *, fsdp: bool = True) -> Any:
+    """A NamedSharding for every leaf of ``model.param_specs()``."""
+    rules = logical_rules(model.cfg, mesh)
+    to_pspec = (lambda s: fsdp_pspec(s, rules, mesh)) if fsdp else (lambda s: spec_to_pspec(s, rules))
+    return tree_map(lambda s: NamedSharding(mesh, to_pspec(s)), model.param_specs())
+
+
+# ------------------------------------------------------- optimizer states
+def opt_state_shardings(model, mesh, state_abstract, *, fsdp: bool = True) -> Any:
+    """Shardings for a TrainState: params and the f32 optimizer states
+    sharded alike, so the m/v/master update is pointwise over identically
+    sharded trees and needs no gathers."""
+    from repro_torch.distributed.compression import CompressionState
+    from repro_torch.training.train_step import TrainState  # local: avoid cycle
+
+    p_shard = param_shardings(model, mesh, fsdp=fsdp)
+    scalar = NamedSharding(mesh, pspec())
+    opt = type(state_abstract.opt)(step=scalar, m=p_shard, v=p_shard, master=p_shard)
+    comp = None
+    if state_abstract.comp is not None:
+        comp = tree_map(CompressionState, p_shard)
+    return TrainState(params=p_shard, opt=opt, comp=comp)
+
+
+# ------------------------------------------------------------- activations
+def activation_rules(mesh, shape: ShapeConfig, cfg: Optional[ModelConfig] = None) -> Dict[str, object]:
+    """Interior activation layouts (Megatron-SP style):
+      residual    — sequence sharded over 'model' between blocks;
+      attn_q      — heads sharded, sequence gathered (TP inside attention);
+      attn_kv     — kv heads replicated, sequence gathered;
+      inner       — d_ff / d_inner sharded, sequence gathered (TP inside FFN/SSM);
+      logits      — vocab sharded CE chunks;
+      moe_in/hidden — expert-parallel or expert-internal TP per cfg.
+    """
+    b = _batch_axes(mesh)
+    tp = mesh_axes(mesh)["model"]
+    if shape.name == "long_500k":
+        # batch=1: parallelism comes from sequence sharding
+        rules = {"residual": NamedSharding(mesh, pspec(None, b, "model"))}
+    else:
+        rules = {"residual": NamedSharding(mesh, pspec(b, "model", None))}
+    rules["attn_q"] = NamedSharding(mesh, pspec(b, None, "model", None))
+    rules["attn_kv"] = NamedSharding(mesh, pspec(b, None, None, None))
+    rules["inner"] = NamedSharding(mesh, pspec(b, None, "model"))
+    rules["logits"] = NamedSharding(mesh, pspec(b, None, "model"))
+    if cfg is not None and cfg.n_kv_heads:
+        # decode query/output (B, KV, G, hd): mirror the KV-cache TP layout
+        kv_div = cfg.n_kv_heads % tp == 0
+        bd = b if shape.global_batch > 1 else None
+        rules["decode_q"] = NamedSharding(
+            mesh, pspec(bd, "model", None, None) if kv_div else pspec(bd, None, None, "model")
+        )
+    if cfg is not None and cfg.family == "moe":
+        # row-local dispatch buffers are (B, E, C, d/f): batch stays on the
+        # data axes, experts or expert-interior on 'model'
+        if cfg.n_experts % tp == 0:
+            rules["moe_in"] = NamedSharding(mesh, pspec(b, "model", None, None))
+            rules["moe_hidden"] = NamedSharding(mesh, pspec(b, "model", None, None))
+        else:
+            rules["moe_in"] = NamedSharding(mesh, pspec(b, None, None, None))
+            rules["moe_hidden"] = NamedSharding(mesh, pspec(b, None, None, "model"))
+    return rules
+
+
+def batch_pspec(mesh, ndim: int) -> PSpec:
+    """The input layout: batch over the data axes, the rest replicated."""
+    return pspec(*([_batch_axes(mesh)] + [None] * (ndim - 1)))
+
+
+def input_shardings(model, mesh, shape: ShapeConfig, specs: Dict[str, Any]) -> Dict[str, Any]:
+    """NamedShardings matching the structure of ``model.input_specs(shape)``."""
+    out: Dict[str, Any] = {}
+    for name, v in specs.items():
+        if name == "cache":
+            out[name] = cache_shardings(model, mesh, shape)
+        elif name == "pos":
+            out[name] = NamedSharding(mesh, pspec())
+        elif isinstance(v, torch.Tensor):
+            if shape.name == "long_500k" and v.ndim >= 1 and v.shape[0] == 1:
+                out[name] = NamedSharding(mesh, pspec(*([None] * v.ndim)))
+            else:
+                out[name] = NamedSharding(mesh, batch_pspec(mesh, v.ndim))
+        else:
+            raise TypeError(name)
+    return out
+
+
+def cache_rules(cfg: ModelConfig, mesh, global_batch: int) -> Dict[str, Optional[object]]:
+    """logical cache-axis name -> mesh axis (or None)."""
+    b = _batch_axes(mesh)
+    tp = mesh_axes(mesh)["model"]
+    # KV cache TP dim: kv heads when divisible, else head_dim (the
+    # contraction dim: partial attention scores are summed over 'model')
+    kv_divisible = cfg.n_kv_heads and cfg.n_kv_heads % tp == 0
+    return {
+        "layers": None,
+        "sublayers": None,
+        "act_batch": b if global_batch > 1 else None,
+        "cache_seq": b if global_batch == 1 else None,  # long_500k: shard S
+        "kv": "model" if kv_divisible else None,
+        "hd": None if kv_divisible else "model",
+        "ssm_inner": "model",
+        "ssm_heads": "model",
+        "embed": None,
+    }
+
+
+def cache_shardings(model, mesh, shape: ShapeConfig) -> Any:
+    rules = cache_rules(model.cfg, mesh, shape.global_batch)
+    return tree_map(lambda s: NamedSharding(mesh, spec_to_pspec(s, rules)),
+                    model.cache_specs(shape.global_batch, shape.seq_len))
+
+
+# ------------------------------------------------------ placing on a mesh
+def _local_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _local_block(shape, mesh, placements) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(local shape, global offset) of this rank's shard."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    local, offset = compute_local_shape_and_global_offset(tuple(shape), mesh, placements)
+    return tuple(local), tuple(offset)
+
+
+def place_zeros(spec: TensorSpec, rules: Dict[str, Optional[object]], mesh) -> torch.Tensor:
+    """A zero DTensor of ``spec`` laid out by ``rules`` on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+
+    placements = to_placements(spec_to_pspec(spec, rules), mesh)
+    local, _ = _local_block(spec.shape, mesh, placements)
+    data = torch.zeros(local, dtype=spec.dtype, device=_local_device(mesh))
+    return DTensor.from_local(data, mesh, placements, run_check=False, shape=spec.shape,
+                              stride=torch.empty(spec.shape, device="meta").stride())
+
+
+def _block_seed(seed: int, path: str, offset: Tuple[int, ...]) -> int:
+    import hashlib
+
+    key = f"{seed}/{path}/{','.join(map(str, offset))}".encode()
+    return int.from_bytes(hashlib.blake2b(key, digest_size=8).digest(), "little") >> 1
+
+
+def _draw_block(spec: TensorSpec, shape, offset, seed: int, path: str, device) -> torch.Tensor:
+    """One block of a leaf, at ``offset`` of the full leaf, drawn from a
+    generator keyed by the seed, the leaf's path and the offset."""
+    import math
+
+    if spec.init == "zeros":
+        return torch.zeros(shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=spec.dtype, device=device)
+    if spec.init == "ssm_a":
+        # A_log = log(1..N) along the last dim, at its global indices
+        idx = torch.arange(offset[-1] + 1, offset[-1] + shape[-1] + 1, dtype=torch.float32, device=device)
+        return torch.log(idx).expand(shape).to(spec.dtype).contiguous()
+    gen = torch.Generator(device).manual_seed(_block_seed(seed, path, offset))
+    if spec.init == "ssm_dt":
+        u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        return (dt + torch.log(-torch.expm1(-dt))).to(spec.dtype)
+    out = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (out * spec.scale).to(spec.dtype)
+
+
+def _draw_shard(spec: TensorSpec, path: str, mesh, placements, seed: int) -> torch.Tensor:
+    """This rank's shard of a leaf. A stacked leaf (3 dims or more) is drawn
+    one leading index at a time, so no full leaf, and no full shard in
+    float32, is ever made."""
+    local, offset = _local_block(spec.shape, mesh, placements)
+    dev = _local_device(mesh)
+    if len(local) < 3:
+        return _draw_block(spec, local, offset, seed, path, dev)
+    out = torch.empty(local, dtype=spec.dtype, device=dev)
+    for i in range(local[0]):
+        out[i] = _draw_block(spec, local[1:], offset[1:], seed, f"{path}[{offset[0] + i}]", dev)
+    return out
+
+
+def place_model(model, shardings, *, seed: Optional[int] = None):
+    """Make every parameter of ``model`` a DTensor laid out by ``shardings``
+    (a tree of :class:`NamedSharding` over one ``DeviceMesh``, as
+    ``param_shardings`` gives). With ``seed`` each rank draws only its own
+    shard of each leaf (``model`` may then be on ``device="meta"``);
+    without, each rank keeps its chunk of the full weights the model holds,
+    which must be the same on every rank. Inputs, caches and steps of the
+    model then follow the mesh. Returns ``model``."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.models.spec import tree_items
+
+    flat = dict(tree_items(shardings))
+    specs = dict(tree_items(model.param_specs()))
+    meshes = {sh.mesh for sh in flat.values()}
+    if len(meshes) != 1:
+        raise ValueError("shardings span more than one mesh")
+    mesh = meshes.pop()
+    dev = _local_device(mesh)
+    with torch.no_grad():
+        for path, param in list(model.named_parameters()):
+            placements = flat[path].placements()
+            spec = specs[path]
+            if seed is not None:
+                local = _draw_shard(spec, path, mesh, placements, seed)
+                data = DTensor.from_local(local, mesh, placements, run_check=False, shape=spec.shape,
+                                          stride=torch.empty(spec.shape, device="meta").stride())
+            else:
+                data = distribute_tensor(param.detach().to(dev), mesh, placements, src_data_rank=None)
+            _set_param(model, path, data, param.requires_grad)
+    model.mesh = mesh
+    return model
+
+
+def _set_param(model, path: str, data: torch.Tensor, requires_grad: bool) -> None:
+    owner, name = model, path
+    if "." in path:
+        prefix, name = path.rsplit(".", 1)
+        owner = model.get_submodule(prefix)
+    setattr(owner, name, torch.nn.Parameter(data, requires_grad=requires_grad))
+
+
+def gather_model(model, device=None):
+    """An unsharded copy of a placed model on ``device`` (default: this
+    rank's), its weights gathered from every rank (a collective)."""
+    from repro_torch.models.model import Model
+
+    out = Model(model.cfg, "meta")
+    dev = torch.device(device) if device is not None else _local_device(model.mesh)
+    with torch.no_grad():
+        for path, param in model.named_parameters():
+            _set_param(out, path, param.full_tensor().to(dev), param.requires_grad)
+    return out
+
+
+# --------------------------------------------------------- collectives
+class CollectiveLog(TorchDispatchMode):
+    """Every collective that the DTensor ops under it make, seen below
+    DTensor's dispatch (as ``CommDebugMode`` sees them): ``calls`` holds
+    (op name, input shape, input bytes) in order and ``gathered`` the
+    inputs of the all-gathers, for :meth:`gathered_params`."""
+
+    _SKIP = ("wait_tensor", "_wrap_tensor_autograd")
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.calls: list = []
+        self.gathered: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # let DTensor lower the op to local ops first
+        ns, name = func.namespace, func._overloadpacket.__name__
+        if ns in ("_c10d_functional", "c10d") and name not in self._SKIP:
+            t = args[0][0] if isinstance(args[0], (list, tuple)) else args[0]
+            if isinstance(t, torch.Tensor):
+                self.calls.append((name, tuple(t.shape), t.numel() * t.element_size()))
+                if "gather" in name:
+                    self.gathered.append(t)
+        return func(*args, **(kwargs or {}))
+
+    def counts(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for name, _, _ in self.calls:
+            out[name] = out.get(name, 0) + 1
+        return out
+
+    def bytes(self) -> int:
+        return sum(b for _, _, b in self.calls)
+
+    def gathered_params(self, model) -> list:
+        """Paths of the parameters whose local shard, or a layer's slice of
+        it, was the input of an all-gather: the same storage, or a tensor
+        of its shape and values."""
+        hits = []
+        for path, param in model.named_parameters():
+            local = param.to_local() if hasattr(param, "to_local") else param
+            ptr = local.untyped_storage().data_ptr()
+            for g in self.gathered:
+                if g.untyped_storage().data_ptr() == ptr:
+                    hits.append(path)
+                    break
+                k = local.ndim - g.ndim
+                if k >= 0 and tuple(local.shape[k:]) == tuple(g.shape) and g.dtype == local.dtype:
+                    rows = local.reshape((-1,) + tuple(g.shape))
+                    if any(torch.equal(r, g) for r in rows):
+                        hits.append(path)
+                        break
+        return hits

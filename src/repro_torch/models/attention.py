@@ -18,9 +18,10 @@ numerics are part of the reference.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 NEG_INF = -1e30
 
@@ -109,6 +110,91 @@ def chunked_attention(
     return out.reshape(B, S, H, hd)
 
 
+def over_local_heads(fn: Callable, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v)`` -> (B, S, H, hd) on each rank's own query heads.
+
+    On DTensors the attention core runs on local shards: q (B, S, H, hd)
+    keeps its batch and head sharding, k and v (B, S, KV, hd) their batch
+    sharding with every KV head on every rank (the ``attn_q`` / ``attn_kv``
+    layouts; other layouts are brought to these). A rank whose heads cover
+    whole KV groups contracts against those groups' K/V; one whose heads
+    split a group takes each head's K/V (G = 1), which is the same per-head
+    arithmetic. Needs no collective."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    mesh = q.device_mesh
+    q_pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate() for p in q.placements)
+    kv_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in q_pl)
+    q = q.redistribute(mesh, q_pl) if q.placements != q_pl else q
+    k, v = (t.redistribute(mesh, kv_pl) if t.placements != kv_pl else t for t in (k, v))
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    local, offset = compute_local_shape_and_global_offset(q.shape, mesh, q_pl)
+    H, KV = q.shape[2], k.shape[2]
+    G, h0, n = H // KV, offset[2], local[2]
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    if n < H:
+        if h0 % G == 0 and n % G == 0:
+            kl, vl = kl[:, :, h0 // G:(h0 + n) // G], vl[:, :, h0 // G:(h0 + n) // G]
+        else:
+            idx = torch.arange(h0, h0 + n, device=ql.device) // G
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+    out = fn(ql, kl, vl)
+    return DTensor.from_local(out, mesh, q_pl, run_check=False, shape=q.shape, stride=q.stride())
+
+
+def _decode_core(qg: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+                 window: int, scale: float, reduce=lambda s: s) -> torch.Tensor:
+    """(B, KV, G, hd) attention of one new token against the caches;
+    ``reduce`` sums the scores over the ranks when hd is sharded."""
+    S = k_cache.shape[1]
+    # grouped: contract against the cache directly (no repeat materialization)
+    s = reduce(torch.einsum("bkgd,bskd->bkgs", (qg * scale).float(), k_cache.float()))
+    idx = torch.arange(S, device=qg.device)
+    keep = idx <= pos
+    if window:
+        keep &= idx > pos - window
+    s = torch.where(keep[None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
+
+
+def _decode_on_shards(qg: DTensor, k_cache: DTensor, v_cache: DTensor, pos: int, window: int,
+                      scale: float) -> DTensor:
+    """``_decode_core`` on each rank's shards of a cache laid out by
+    ``cache_shardings`` (batch, and kv heads or head dim, sharded): the
+    query follows the cache's layout, and with the head dim sharded the
+    scores are all-reduced over its axes before the softmax."""
+    from torch.distributed.tensor import Partial
+
+    mesh = k_cache.device_mesh
+    to_q = {0: Shard(0), 2: Shard(1), 3: Shard(3)}
+    q_pl, part = [], []
+    for p in k_cache.placements:
+        if isinstance(p, Shard) and p.dim not in to_q:
+            raise ValueError(f"decode over a cache sharded at dim {p.dim} is not supported")
+        q_pl.append(to_q[p.dim] if isinstance(p, Shard) else Replicate())
+        part.append(Partial() if isinstance(p, Shard) and p.dim == 3 else q_pl[-1])
+    q_pl = tuple(q_pl)
+    qg = qg.redistribute(mesh, q_pl) if tuple(qg.placements) != q_pl else qg
+    if tuple(v_cache.placements) != tuple(k_cache.placements):
+        v_cache = v_cache.redistribute(mesh, k_cache.placements)
+    B, KV, G, _ = qg.shape
+    s_shape = (B, KV, G, k_cache.shape[1])
+    s_pl = tuple(Replicate() if isinstance(p, Partial) else p for p in part)
+
+    def reduce(s):
+        if s_pl == tuple(part):
+            return s
+        return DTensor.from_local(s, mesh, part, run_check=False, shape=s_shape,
+                                  stride=torch.empty(s_shape, device="meta").stride()
+                                  ).redistribute(mesh, s_pl).to_local()
+
+    out = _decode_core(qg.to_local(), k_cache.to_local(), v_cache.to_local(), pos, window, scale, reduce)
+    return DTensor.from_local(out, mesh, q_pl, run_check=False, shape=qg.shape,
+                              stride=torch.empty(qg.shape, device="meta").stride())
+
+
 def decode_attention(
     q: torch.Tensor,        # (B, H, hd) — single new token
     k_cache: torch.Tensor,  # (B, S, KV, hd)
@@ -117,21 +203,23 @@ def decode_attention(
     *,
     window: int = 0,
 ) -> torch.Tensor:
+    """On DTensors the attention runs on each rank's shards of the cache
+    (``_decode_on_shards``)."""
+    from repro_torch.launch.act_sharding import constrain, merge_dims, split_dim
+
     B, S, KV, hd = k_cache.shape
     H = q.shape[1]
     G = H // KV
-    qg = q.reshape(B, KV, G, hd)
+    # pin the query to the cache's TP layout (kv- or hd-sharded, see
+    # launch/shardings.cache_shardings) before the einsums
+    qg = constrain(split_dim(q, 1, (KV, G)), "decode_q")
     scale = 1.0 / (hd ** 0.5)
-    # grouped: contract against the cache directly (no repeat materialization)
-    s = torch.einsum("bkgd,bskd->bkgs", (qg * scale).float(), k_cache.float())
-    idx = torch.arange(S, device=q.device)
-    keep = idx <= pos
-    if window:
-        keep &= idx > pos - window
-    s = torch.where(keep[None, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
-    return out.reshape(B, H, hd).to(q.dtype)
+    if isinstance(k_cache, DTensor):
+        out = _decode_on_shards(qg, k_cache, v_cache, pos, window, scale)
+    else:
+        out = _decode_core(qg, k_cache, v_cache, pos, window, scale)
+    out = constrain(out, "decode_q")
+    return merge_dims(out, 1).to(q.dtype)
 
 
 def update_kv_cache(

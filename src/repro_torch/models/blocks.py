@@ -10,11 +10,13 @@ from typing import Optional
 import torch
 
 from repro_torch.config.model import ModelConfig
+from repro_torch.launch.act_sharding import constrain, merge_dims, split_dim
 from repro_torch.models.attention import (
     chunked_attention,
     chunked_attention_repeat,
     decode_attention,
     decode_attention_repeat,
+    over_local_heads,
     update_kv_cache,
 )
 from repro_torch.models.layers import apply_rope, matmul, mlp_apply, mlp_specs, rms_norm, rope_freqs
@@ -40,7 +42,6 @@ def attn_specs(cfg: ModelConfig, d_in: Optional[int] = None) -> dict:
 
 
 def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
-    B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = matmul(x, p["wq"])
     k = matmul(x, p["wk"])
@@ -49,33 +50,37 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    return q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
+    return split_dim(q, -1, (H, hd)), split_dim(k, -1, (KV, hd)), split_dim(v, -1, (KV, hd))
 
 
 def attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     """Full-sequence attention. positions: (S,) absolute positions.
     Returns (out, (k, v)), k and v after RoPE."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     q, k, v = _qkv(p, cfg, x)
     if cfg.rope_theta:
         cos, sin = rope_freqs(positions, cfg.hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    # SP -> TP boundary: gather sequence, shard heads (Megatron-SP layout)
+    q = constrain(q, "attn_q")
+    k = constrain(k, "attn_kv")
+    v = constrain(v, "attn_kv")
     chunk = min(cfg.attn_chunk, S)
     if cfg.attn_grouped:
         p_dtype = torch.bfloat16 if (cfg.attn_p_bf16 and cfg.dtype == "bfloat16") else torch.float32
-        out = chunked_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
-                                chunk=chunk, p_dtype=p_dtype)
+        core = lambda q, k, v: chunked_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+                                                 chunk=chunk, p_dtype=p_dtype)
     else:  # A/B baseline
-        out = chunked_attention_repeat(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
-                                       chunk=chunk)
-    return matmul(out.reshape(B, S, -1), p["wo"]), (k, v)
+        core = lambda q, k, v: chunked_attention_repeat(q, k, v, causal=cfg.causal,
+                                                        window=cfg.sliding_window, chunk=chunk)
+    out = over_local_heads(core, q, k, v)
+    return matmul(merge_dims(out, 2), p["wo"]), (k, v)
 
 
 def attn_decode_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, pos: int):
     """x: (B, d_in) single token; caches (B, S, KV, hd), written at ``pos``."""
-    B = x.shape[0]
     q, k, v = _qkv(p, cfg, x[:, None])
     if cfg.rope_theta:
         cos, sin = rope_freqs(torch.full((1,), pos, device=x.device), cfg.hd, cfg.rope_theta)
@@ -84,7 +89,7 @@ def attn_decode_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, k_cache: torch
     k_cache, v_cache = update_kv_cache(k_cache, v_cache, k[:, 0], v[:, 0], pos)
     dec = decode_attention if cfg.attn_grouped else decode_attention_repeat
     out = dec(q[:, 0], k_cache, v_cache, pos, window=cfg.sliding_window)
-    return matmul(out.reshape(B, -1), p["wo"]), k_cache, v_cache
+    return matmul(merge_dims(out, 1), p["wo"]), k_cache, v_cache
 
 
 # ------------------------------------------------------------- dense layers

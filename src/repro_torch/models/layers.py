@@ -9,9 +9,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.model import ModelConfig
+from repro_torch.launch.act_sharding import constrain
 from repro_torch.models.spec import TensorSpec
 
 
@@ -22,7 +24,23 @@ def _common(*ops: torch.Tensor) -> list:
     return [o.to(dt) for o in ops]
 
 
+def _fit_input(a: torch.Tensor, w: DTensor) -> torch.Tensor:
+    """``a`` laid out so that ``a @ w`` moves no part of the weight: over a
+    mesh axis that shards w's columns, a's rows are whole (the SP -> TP
+    gather of the activation); over one that shards w's rows, a's columns
+    are sharded alike; elsewhere a keeps its layout."""
+    want = list(a.placements)
+    for i, p in enumerate(w.placements):
+        if isinstance(p, Shard) and p.dim == w.ndim - 1:
+            want[i] = Replicate()
+        elif isinstance(p, Shard) and p.dim == w.ndim - 2:
+            want[i] = Shard(a.ndim - 1)
+    return a.redistribute(a.device_mesh, want) if want != list(a.placements) else a
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if isinstance(a, DTensor) and isinstance(b, DTensor):
+        a = _fit_input(a, b)
     return torch.matmul(*_common(a, b))
 
 
@@ -68,6 +86,7 @@ def mlp_specs(cfg: ModelConfig, d_in: int | None = None) -> dict:
 
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(matmul(x, p["gate"])) * matmul(x, p["up"])
+    h = constrain(h, "inner")  # SP -> TP boundary: d_ff sharded, S gathered
     return matmul(h, p["down"])
 
 
@@ -82,6 +101,13 @@ def embed_specs(cfg: ModelConfig) -> dict:
 
 
 def embed_tokens(p: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if isinstance(p["tok"], DTensor):
+        # F.embedding, not indexing: on a vocab-sharded table DTensor looks
+        # the rows up where they live (a masked partial sum), no gather;
+        # the sum is taken at once, as the pending mask serves one reduction
+        out = F.embedding(tokens, p["tok"])
+        whole = [Replicate() if q.is_partial() else q for q in out.placements]
+        return out.redistribute(out.device_mesh, whole).to(dtype)
     return p["tok"][tokens].to(dtype)
 
 
@@ -93,7 +119,7 @@ def head_matrix(p: dict, cfg: ModelConfig) -> torch.Tensor:
 def _ce_chunk(xs: torch.Tensor, head: torch.Tensor, ls: torch.Tensor):
     """(sum of lse - gold over the valid labels, their count) of one chunk;
     its logits are float32."""
-    logits = matmul(xs, head).float()                          # (B, C, V)
+    logits = constrain(matmul(xs, head).float(), "logits")     # (B, C, V)
     m = torch.amax(logits, dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
     gold = torch.gather(logits, -1, ls.clamp_min(0)[..., None])[..., 0]

@@ -19,21 +19,29 @@ each layer's input and recomputes the layer in the backward pass,
 recomputes the rest, ``"none"`` keeps everything. Without grad (prefill,
 decode, an eval loss) nothing is checkpointed. ``cfg.scan_unroll`` does
 nothing. Decode writes its cache in place.
+
+On a mesh (``launch.shardings.place_model``) the parameters are DTensors;
+inputs, caches and steps follow them, and the ``constrain`` calls pin the
+activations where the reference's do (``launch.act_sharding``).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
-from repro_torch.config.model import ModelConfig
+from repro_torch.config.model import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.act_sharding import constrain
 from repro_torch.models import blocks, ssm
 from repro_torch.models.layers import chunked_ce_loss, embed_specs, embed_tokens, head_matrix, matmul, rms_norm
-from repro_torch.models.spec import SpecTree, TensorSpec, tree_init, tree_items, tree_map
+from repro_torch.models.spec import SpecTree, TensorSpec, tree_abstract, tree_init, tree_items, tree_map
 
 ACT_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -161,10 +169,17 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
                  generator: Optional[torch.Generator] = None) -> None:
         """Weights drawn from ``generator`` (default: seed 0 on ``device``,
-        which defaults to ``cuda:0``)."""
+        which defaults to ``cuda:0``). On ``device="meta"`` the parameters
+        are meta tensors (no allocation), to be placed on a mesh by
+        ``launch.shardings.place_model``."""
         super().__init__()
         self.cfg = cfg
         self.dtype = ACT_DTYPE[cfg.dtype]
+        # set by ``place_model``: the mesh the parameters are DTensors on
+        self.mesh = None
+        if device is not None and torch.device(device).type == "meta":
+            _register(self, self.abstract_params())
+            return
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(dev).manual_seed(0)
@@ -174,6 +189,11 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.ln_f.device
 
+    def _placed(self):
+        """Plain tensors made inside a placed model's step (positions,
+        masks, RoPE tables, buffers) take part as replicated DTensors."""
+        return implicit_replication() if self.mesh is not None else contextlib.nullcontext()
+
     def params(self) -> Dict[str, Any]:
         """The parameters as a nested dict, keyed as the reference's tree."""
         return _tree(self)
@@ -182,8 +202,21 @@ class Model(nn.Module):
     def param_specs(self) -> SpecTree:
         return param_specs(self.cfg)
 
+    def abstract_params(self) -> Dict[str, Any]:
+        return tree_abstract(self.param_specs())
+
     def _input(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device)
+        """An input on the model's device; on a mesh, a DTensor with its
+        batch over the data axes (``launch.shardings.input_shardings``)."""
+        if isinstance(x, DTensor):
+            return x
+        x = torch.as_tensor(x, device=self.device)
+        if self.mesh is None:
+            return x
+        from repro_torch.launch.shardings import batch_pspec, to_placements
+
+        return distribute_tensor(x, self.mesh, to_placements(batch_pspec(self.mesh, x.ndim), self.mesh),
+                                 src_data_rank=None)
 
     def _embed(self, params, batch) -> torch.Tensor:
         x = embed_tokens(params["embed"], self._input(batch["tokens"]).long(), self.dtype)
@@ -198,6 +231,10 @@ class Model(nn.Module):
     def loss(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
         """Chunked CE (+ the MoE aux loss); differentiable, ``cfg.remat``
         applied per layer while autograd records."""
+        with self._placed():
+            return self._loss(batch)
+
+    def _loss(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
         cfg, params = self.cfg, self.params()
         labels = self._input(batch["labels"]).long()
         if cfg.family == "encoder":
@@ -226,6 +263,10 @@ class Model(nn.Module):
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         cache: Dict[str, Any] = {}
+        # the residual stream's layout between blocks; the reference pins it
+        # in the loss and the encoder's forward, not in a decoder's prefill
+        res = (lambda t: t) if want_cache else (lambda t: constrain(t, "residual"))
+        x = res(x)
         if cfg.family in ("dense", "vlm", "encoder", "moe"):
             if cfg.family == "moe":
                 def body(h, lp):
@@ -239,6 +280,7 @@ class Model(nn.Module):
             ks, vs = [], []
             for lp in _unstack(params["layers"]):
                 x, (k, v), a = layer(x, lp)
+                x = res(x)
                 if a is not None:
                     aux = aux + a
                 if want_cache:
@@ -256,6 +298,7 @@ class Model(nn.Module):
             hs, convs = [], []
             for lp in _unstack(params["layers"]):
                 x, h_last, conv = layer(x, lp)
+                x = res(x)
                 if want_cache:
                     hs.append(h_last)
                     convs.append(conv)
@@ -273,9 +316,9 @@ class Model(nn.Module):
                     if want_cache:
                         hs.append(h_last)
                         convs.append(self._conv_tail(pre, lp))
-                    h = h + out
+                    h = res(h + out)
                 h, kv = blocks.shared_attn_prefill(params["shared"], cfg, h, e0, positions)
-                return h, hs, convs, kv
+                return res(h), hs, convs, kv
 
             layer = _remat(group, cfg.remat)
             hs, convs, ks, vs = [], [], [], []
@@ -308,6 +351,10 @@ class Model(nn.Module):
         """Process a prompt; returns (last-token logits, cache). The cache is
         sized to the prompt length (callers pad prompts to cache size). An
         encoder returns its (B, S, V) frame logits and no cache."""
+        with self._placed():
+            return self._prefill(batch)
+
+    def _prefill(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg, params = self.cfg, self.params()
         if cfg.family == "encoder":
             x = self._input(batch["frame_embeds"]).to(self.dtype)
@@ -325,6 +372,10 @@ class Model(nn.Module):
     def decode_step(self, tokens, cache: Dict[str, torch.Tensor], pos: int):
         """One autoregressive step. tokens: (B,) ints; pos: the new token's
         index. Returns (logits (B, V) f32, cache), the cache updated in place."""
+        with self._placed():
+            return self._decode_step(tokens, cache, pos)
+
+    def _decode_step(self, tokens, cache: Dict[str, torch.Tensor], pos: int):
         cfg, params = self.cfg, self.params()
         assert cfg.has_decode, f"{cfg.name} is encoder-only"
         pos = int(pos)
@@ -364,8 +415,39 @@ class Model(nn.Module):
         return cache_specs(self.cfg, batch, cache_len)
 
     def init_cache(self, batch: int, cache_len: int) -> Dict[str, torch.Tensor]:
+        """Zeros; on a mesh, DTensors placed by ``cache_shardings``."""
+        if self.mesh is not None:
+            from repro_torch.launch.shardings import cache_rules, place_zeros
+
+            rules = cache_rules(self.cfg, self.mesh, batch)
+            return tree_map(lambda s: place_zeros(s, rules, self.mesh), self.cache_specs(batch, cache_len))
         return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=self.device),
                         self.cache_specs(batch, cache_len))
+
+    # ============================================================ input specs
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Meta-tensor stand-ins for every model input of a cell (no
+        allocation)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+        i32 = torch.int32
+        if shape.kind == "decode":  # one new token against a cache of S
+            return {"tokens": meta((B,), i32), "pos": meta((), i32),
+                    "cache": tree_abstract(self.cache_specs(B, S))}
+        if cfg.family == "encoder":
+            out = {"frame_embeds": meta((B, S, cfg.d_model), self.dtype)}
+            if shape.kind == "train":
+                out.update(mask=meta((B, S), torch.bool), labels=meta((B, S), i32))
+            return out
+        if cfg.family == "vlm":
+            si = S // 2
+            out = {"tokens": meta((B, S - si), i32), "patch_embeds": meta((B, si, cfg.d_model), self.dtype)}
+        else:
+            out = {"tokens": meta((B, S), i32)}
+        if shape.kind == "train":
+            out["labels"] = meta(out["tokens"].shape, i32)
+        return out
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None, *,

@@ -27,6 +27,10 @@ class TensorSpec:
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
+    def abstract(self) -> torch.Tensor:
+        """A meta tensor of the spec's shape and dtype (no allocation)."""
+        return torch.empty(self.shape, dtype=self.dtype, device="meta")
+
 
 SpecTree = Dict[str, Any]  # nested dicts of TensorSpec
 
@@ -44,6 +48,10 @@ def tree_items(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, An
 
 def tree_map(fn: Callable[[Any], Any], tree: Dict[str, Any]) -> Dict[str, Any]:
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def tree_abstract(specs: SpecTree) -> Dict[str, Any]:
+    return tree_map(lambda s: s.abstract(), specs)
 
 
 def _init_one(spec: TensorSpec, generator: torch.Generator) -> torch.Tensor:

@@ -9,10 +9,14 @@ The depthwise causal conv is ``F.conv1d`` with ``groups=C``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config.model import ModelConfig
+from repro_torch.launch.act_sharding import ModelAxis, constrain
 from repro_torch.models.layers import matmul
 from repro_torch.models.spec import TensorSpec
 
@@ -46,14 +50,43 @@ def _conv_step(window: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
     return torch.einsum("bkc,kc->bc", window.float(), w.float()) + b.float()
 
 
-def _mamba1_core(p: dict, cfg: ModelConfig, x: torch.Tensor, h0: torch.Tensor):
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _mamba1_local(p: dict, tp: ModelAxis) -> dict:
+    """This rank's slice of a mamba-1 layer's parameters: the d_inner
+    channels [c0, c1) over ``model``; ``c0``/``c1`` under those keys."""
+    out = {}
+    for name, dim in (("conv_w", 1), ("conv_b", 0), ("x_proj", 0), ("dt_w", 1), ("dt_b", 0),
+                      ("A_log", 0), ("D", 0), ("out_proj", 0)):
+        out[name], out["c0"], out["c1"] = tp.param(p[name], dim)
+    return out
+
+
+def _mamba1_inputs(p: dict, cfg: ModelConfig, xz: torch.Tensor):
+    """(p, tp, x, z) of a mamba-1 block from its in_proj output. On a
+    DTensor the output is gathered over ``model`` and x and z are cut to
+    this rank's d_inner channels, with p cut alike (``tp``; None on plain
+    tensors)."""
+    if not isinstance(xz, DTensor):
+        x, z = xz.chunk(2, dim=-1)
+        return p, None, x, z
+    tp = ModelAxis(xz)
+    p = _mamba1_local(p, tp)
+    xz, c0, c1, di = tp.whole_rows(xz), p["c0"], p["c1"], cfg.d_inner
+    return p, tp, xz[..., c0:c1], xz[..., di + c0:di + c1]
+
+
+def _mamba1_core(p: dict, cfg: ModelConfig, x: torch.Tensor, h0: torch.Tensor, reduce=_same):
     """Chunked selective scan. x: (B, S, di) post-conv post-silu activations.
-    h0: (B, di, N) carried state. Returns (y, h_last)."""
+    h0: (B, di, N) carried state. Returns (y, h_last). On a slice of the
+    channels, ``reduce`` sums the x_proj partial products over the slices."""
     B, S, di = x.shape
     N, R, Q = cfg.ssm_state, cfg.dt_rank, min(cfg.ssm_chunk, S)
     assert S % Q == 0, (S, Q)
 
-    proj = matmul(x, p["x_proj"]).float()  # (B, S, R+2N)
+    proj = reduce(matmul(x, p["x_proj"]).float())  # (B, S, R+2N)
     dt_r, Bm, Cm = proj[..., :R], proj[..., R: R + N], proj[..., R + N:]
     dt = F.softplus(dt_r @ p["dt_w"].float() + p["dt_b"])  # (B, S, di)
     A = -torch.exp(p["A_log"])  # (di, N)
@@ -76,27 +109,37 @@ def _mamba1_core(p: dict, cfg: ModelConfig, x: torch.Tensor, h0: torch.Tensor):
 
 
 def mamba1_forward(p: dict, cfg: ModelConfig, u: torch.Tensor, h0=None):
-    """Full block. u: (B, S, d_model) -> ((B, S, d_model), h_last)."""
-    B = u.shape[0]
-    xz = matmul(u, p["in_proj"])
-    x, z = xz.chunk(2, dim=-1)
+    """Full block. u: (B, S, d_model) -> ((B, S, d_model), h_last).
+
+    On DTensors each rank runs the conv and the scan on its own d_inner
+    channels (``ModelAxis``): the in_proj output is gathered over
+    ``model``, x_proj's partial products are all-reduced, and the output
+    is left pending its sum over ``model`` (h_last sharded on d_inner)."""
+    xz = constrain(matmul(u, p["in_proj"]), "inner")  # SP -> TP: d_inner sharded
+    p, tp, x, z = _mamba1_inputs(p, cfg, xz)
     x = F.silu(_causal_conv(x, p["conv_w"], p["conv_b"]))
     if h0 is None:
-        h0 = torch.zeros((B, cfg.d_inner, cfg.ssm_state), dtype=torch.float32, device=u.device)
-    y, h_last = _mamba1_core(p, cfg, x, h0)
+        h0 = torch.zeros((x.shape[0], x.shape[-1], cfg.ssm_state), dtype=torch.float32, device=x.device)
+    y, h_last = _mamba1_core(p, cfg, x, h0, _same if tp is None else tp.psum)
     y = (y * F.silu(z.float())).to(u.dtype)
-    return matmul(y, p["out_proj"]), h_last
+    out = matmul(y, p["out_proj"])
+    if tp is None:
+        return out, h_last
+    return tp.wrap(out, partial=True), tp.wrap(h_last, 1, cfg.d_inner)
 
 
 def mamba1_decode(p: dict, cfg: ModelConfig, u: torch.Tensor, h: torch.Tensor, conv_buf: torch.Tensor):
     """Single-token step. u: (B, d); h: (B, di, N); conv_buf: (B, K-1, di).
     Returns (y (B, d), h_new, conv_buf_new)."""
     N, R = cfg.ssm_state, cfg.dt_rank
-    x, z = matmul(u, p["in_proj"]).chunk(2, dim=-1)  # (B, di)
+    p, tp, x, z = _mamba1_inputs(p, cfg, matmul(u, p["in_proj"]))  # (B, di)
+    reduce = _same
+    if tp is not None:  # as in mamba1_forward, on this rank's channels
+        h, conv_buf, reduce = tp.local(h, 1), tp.local(conv_buf, 2), tp.psum
     window = torch.cat([conv_buf, x[:, None]], dim=1)  # (B, K, di)
     x = F.silu(_conv_step(window, p["conv_w"], p["conv_b"])).to(u.dtype)
 
-    proj = matmul(x, p["x_proj"]).float()
+    proj = reduce(matmul(x, p["x_proj"]).float())
     dt_r, Bm, Cm = proj[..., :R], proj[..., R: R + N], proj[..., R + N:]
     dt = F.softplus(dt_r @ p["dt_w"].float() + p["dt_b"])  # (B, di)
     A = -torch.exp(p["A_log"])
@@ -105,7 +148,11 @@ def mamba1_decode(p: dict, cfg: ModelConfig, u: torch.Tensor, h: torch.Tensor, c
     h_new = dA * h + dBx
     y = torch.einsum("bn,bdn->bd", Cm, h_new) + x.float() * p["D"]
     y = (y * F.silu(z.float())).to(u.dtype)
-    return matmul(y, p["out_proj"]), h_new, window[:, 1:]
+    out = matmul(y, p["out_proj"])
+    if tp is None:
+        return out, h_new, window[:, 1:]
+    return (tp.wrap(out, partial=True), tp.wrap(h_new, 1, cfg.d_inner),
+            tp.wrap(window[:, 1:], 2, cfg.d_inner))
 
 
 # =============================================================== mamba-2
@@ -159,9 +206,54 @@ def _mamba2_core(cfg, dt, A, Bm, Cm, X, h):
     return torch.cat(ys, dim=1), h
 
 
-def _rms(x, scale, eps):
+def _rms(x, scale, eps, tp: Optional[ModelAxis] = None, width: int = 0):
+    """RMSNorm over the last dim; on a slice of it (``tp``) the sum of
+    squares is all-reduced over ``model`` and divided by the full ``width``."""
     xf = x.float()
-    return xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps) * scale.float()
+    if tp is None:
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        ms = tp.psum(torch.sum(xf * xf, dim=-1, keepdim=True)) / width
+    return xf * torch.rsqrt(ms + eps) * scale.float()
+
+
+def _mamba2_local(p: dict, cfg: ModelConfig, tp: ModelAxis) -> dict:
+    """This rank's slice of a mamba-2 layer's parameters: heads [h0, h1)
+    and their d_inner channels [c0, c1) over ``model``, and the slice
+    [a0, a1) of the conv's x|B|C channels. Refuses a head split that the
+    channel split does not follow."""
+    P = cfg.ssm_head_dim
+    out = {}
+    out["conv_w"], out["a0"], out["a1"] = tp.param(p["conv_w"], 1)
+    out["conv_b"] = tp.param(p["conv_b"], 0)[0]
+    for name in ("A_log", "dt_b", "D"):
+        out[name], out["h0"], out["h1"] = tp.param(p[name], 0)
+    out["norm"], c0, c1 = tp.param(p["norm"], 0)
+    out["out_proj"] = tp.param(p["out_proj"], 0)[0]
+    if (c0, c1) != (out["h0"] * P, out["h1"] * P):
+        raise ValueError(f"d_inner slice [{c0}, {c1}) does not follow the head slice "
+                         f"[{out['h0']}, {out['h1']}) x {P}")
+    return out
+
+
+def _mamba2_inputs(p: dict, cfg: ModelConfig, zxbcdt: torch.Tensor, conv):
+    """(p, tp, z, x, Bm, Cm, dt) of a mamba-2 block from its in_proj output,
+    after ``conv`` (the causal conv + silu of the x|B|C channels). On a
+    DTensor the in_proj output is gathered over ``model``, the conv runs on
+    this rank's slice of its channels and is gathered back, and z, x and dt
+    are cut to this rank's heads (``tp``; None on plain tensors)."""
+    di, N = cfg.d_inner, cfg.ssm_state
+    if not isinstance(zxbcdt, DTensor):
+        z, xbc, dt = _split_zxbcdt(cfg, zxbcdt)
+        x, Bm, Cm = torch.tensor_split(conv(xbc, p), [di, di + N], dim=-1)
+        return p, None, z, x, Bm, Cm, dt
+    tp = ModelAxis(zxbcdt)
+    p = _mamba2_local(p, cfg, tp)
+    z, xbc, dt = _split_zxbcdt(cfg, tp.whole_rows(zxbcdt))
+    xbc = tp.gather(conv(xbc[..., p["a0"]:p["a1"]], p), xbc.ndim - 1, di + 2 * N)
+    x, Bm, Cm = torch.tensor_split(xbc, [di, di + N], dim=-1)
+    c0, c1 = p["h0"] * cfg.ssm_head_dim, p["h1"] * cfg.ssm_head_dim
+    return p, tp, z[..., c0:c1], x[..., c0:c1], Bm, Cm, dt[..., p["h0"]:p["h1"]]
 
 
 def _split_zxbcdt(cfg: ModelConfig, zxbcdt: torch.Tensor):
@@ -171,36 +263,51 @@ def _split_zxbcdt(cfg: ModelConfig, zxbcdt: torch.Tensor):
 
 def mamba2_forward(p: dict, cfg: ModelConfig, u: torch.Tensor, h0=None):
     """Full SSD block. u: (B, S, d) -> ((B, S, d), h_last)."""
-    B, S, _ = u.shape
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_head_dim
-    z, xbc, dt = _split_zxbcdt(cfg, matmul(u, p["in_proj"]))
-    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
-    x, Bm, Cm = torch.tensor_split(xbc, [di, di + N], dim=-1)
+    di, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    zxbcdt = constrain(matmul(u, p["in_proj"]), "inner")  # SP -> TP: d_inner sharded
+    conv = lambda xbc, p: F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    p, tp, z, x, Bm, Cm, dt = _mamba2_inputs(p, cfg, zxbcdt, conv)
+    B, S, H = dt.shape
     X = x.reshape(B, S, H, P).float()
     dtf = F.softplus(dt.float() + p["dt_b"])                     # (B,S,H)
     A = -torch.exp(p["A_log"])                                   # (H,)
     if h0 is None:
-        h0 = torch.zeros((B, H, P, N), dtype=torch.float32, device=u.device)
+        h0 = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
     Y, h_last = _mamba2_core(cfg, dtf, A, Bm.float(), Cm.float(), X, h0)
     Y = Y + X * p["D"][None, None, :, None]
-    y = Y.reshape(B, S, di) * F.silu(z.float())
-    y = _rms(y, p["norm"], cfg.norm_eps).to(u.dtype)
-    return matmul(y, p["out_proj"]), h_last
+    y = Y.reshape(B, S, H * P) * F.silu(z.float())
+    y = _rms(y, p["norm"], cfg.norm_eps, tp, di).to(u.dtype)
+    out = matmul(y, p["out_proj"])
+    if tp is None:
+        return out, h_last
+    return tp.wrap(out, partial=True), tp.wrap(h_last, 1, cfg.ssm_nheads)
 
 
 def mamba2_decode(p: dict, cfg: ModelConfig, u: torch.Tensor, h: torch.Tensor, conv_buf: torch.Tensor):
     """Single-token SSD step. u: (B, d); h: (B, H, P, N); conv_buf: (B, K-1, di+2N)."""
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_head_dim
-    z, xbc, dt = _split_zxbcdt(cfg, matmul(u, p["in_proj"]))
-    window = torch.cat([conv_buf, xbc[:, None]], dim=1)
-    xbc = F.silu(_conv_step(window, p["conv_w"], p["conv_b"]))
-    x, Bm, Cm = torch.tensor_split(xbc, [di, di + N], dim=-1)
+    di, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    zxbcdt = matmul(u, p["in_proj"])
+    if isinstance(zxbcdt, DTensor):
+        tp = ModelAxis(zxbcdt)
+        h, conv_buf = tp.local(h, 1), tp.local(conv_buf, 2)
+    windows = []
+
+    def conv(xbc, p):
+        windows.append(torch.cat([conv_buf, xbc[:, None]], dim=1))
+        return F.silu(_conv_step(windows[0], p["conv_w"], p["conv_b"]))
+
+    p, tp, z, x, Bm, Cm, dt = _mamba2_inputs(p, cfg, zxbcdt, conv)
+    H = dt.shape[-1]
     X = x.reshape(-1, H, P)
     dtf = F.softplus(dt.float() + p["dt_b"])                     # (B,H)
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dtf * A)                                      # (B,H)
     h_new = dA[..., None, None] * h + torch.einsum("bn,bh,bhp->bhpn", Bm, dtf, X)
     y = torch.einsum("bn,bhpn->bhp", Cm, h_new) + X * p["D"][None, :, None]
-    y = y.reshape(-1, di) * F.silu(z.float())
-    y = _rms(y, p["norm"], cfg.norm_eps).to(u.dtype)
-    return matmul(y, p["out_proj"]), h_new, window[:, 1:]
+    y = y.reshape(-1, H * P) * F.silu(z.float())
+    y = _rms(y, p["norm"], cfg.norm_eps, tp, di).to(u.dtype)
+    out = matmul(y, p["out_proj"])
+    if tp is None:
+        return out, h_new, windows[0][:, 1:]
+    return (tp.wrap(out, partial=True), tp.wrap(h_new, 1, cfg.ssm_nheads),
+            tp.wrap(windows[0][:, 1:], 2, di + 2 * N))

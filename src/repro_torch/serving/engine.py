@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.models.model import Model
 
 
@@ -81,7 +83,7 @@ class ServeEngine:
 
         # prefill on prompt, then grow the cache to the full horizon
         logits, cache = self.model.prefill({"tokens": torch.from_numpy(toks)})
-        cache = self._grow_cache(cache, P, P + max_new)
+        cache = self._grow_cache(cache, P, P + max_new, self.model)
 
         out: List[List[int]] = [[] for _ in range(B)]
         done = np.zeros(B, bool)
@@ -106,17 +108,30 @@ class ServeEngine:
         ]
 
     @staticmethod
-    def _grow_cache(cache: Dict[str, torch.Tensor], P: int, total: int) -> Dict[str, torch.Tensor]:
+    def _grow_cache(cache: Dict[str, torch.Tensor], P: int, total: int,
+                    model: Optional[Model] = None) -> Dict[str, torch.Tensor]:
         """Pad the attention caches ``k`` and ``v`` (..., S, KV, hd) along
         their sequence axis from the prompt length to the decode horizon.
         No other leaf grows: an SSM state or conv cache has no sequence axis,
-        whatever its sizes."""
-        return {name: F.pad(t, (0, 0, 0, 0, 0, total - P)) if name in ("k", "v") else t
-                for name, t in cache.items()}
+        whatever its sizes. For a model on a mesh every leaf is copied into
+        ``model.init_cache``'s, which places it by ``cache_shardings``."""
+        if model is None or model.mesh is None:
+            return {name: F.pad(t, (0, 0, 0, 0, 0, total - P)) if name in ("k", "v") else t
+                    for name, t in cache.items()}
+        batch = next(iter(cache.values())).shape[-4 if "k" in cache else -3]
+        grown = model.init_cache(batch, total)
+        for name, t in cache.items():
+            if name in ("k", "v"):
+                grown[name][..., :P, :, :] = t
+            else:
+                grown[name].copy_(t)
+        return grown
 
     @staticmethod
     def _sample(logits: torch.Tensor, reqs: List[Request], generator: torch.Generator) -> np.ndarray:
         temps = np.array([r.temperature for r in reqs], np.float32)
+        if isinstance(logits, DTensor):
+            logits = logits.full_tensor()
         greedy = torch.argmax(logits, dim=-1).cpu().numpy()
         if (temps == 0).all():
             return greedy

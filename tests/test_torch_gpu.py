@@ -894,3 +894,32 @@ def test_train_defaults_to_the_card(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--arch", "qwen2-0.5b", "--steps", "1", "--ckpt-dir", str(tmp_path / "x")])
+
+
+# ----------------------------------------------------------- LM on a mesh
+# every family reduced, placed on (data 1, model every card) by the port's
+# sharding rules in a world of one NCCL rank a card (tests/torch_sharded.py)
+SHARDED_FAMILIES = {"dense": "qwen2-0.5b", "sliding window": "h2o-danube-1.8b", "moe": "olmoe-1b-7b",
+                    "ssm": "falcon-mamba-7b", "hybrid": "zamba2-2.7b", "vlm": "llava-next-34b",
+                    "encoder": "hubert-xlarge"}
+
+
+@pytest.fixture(scope="module")
+def mesh_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch_sharded import run_world
+
+    n = torch.cuda.device_count()
+    cases = {fam: {"arch": arch, "mesh": (1, n)} for fam, arch in SHARDED_FAMILIES.items()}
+    return run_world(cases, n, tmp_path_factory.mktemp("mesh"), backend="nccl")
+
+
+@pytest.mark.parametrize("family", list(SHARDED_FAMILIES))
+def test_lm_on_a_mesh_of_the_cards_equals_unsharded(mesh_world, family):
+    out = mesh_world[0][family]
+    assert "error" not in out, out.get("error")
+    assert out["prefill_err"] <= 1e-4
+    if "tokens" in out:
+        assert out["decode_err"] <= 1e-4 and out["tokens"] == out["ref_tokens"]
+        assert out["gathered_params"] == []
