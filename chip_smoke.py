@@ -146,8 +146,21 @@ Phases, in order; any failure raises and exits non-zero:
             its weights gathered on rank 0; (n3) qwen1.5-110b at full width
             and depth in bf16 (55.6 GB of weights a card), timed as (n1)
             beside its bounds. With fewer it says so and shrinks nothing.
-            (l), (m) and (n) run after phase 4's timings, last before the
-            result lines.
+            (o) the multi-pod dry-run (``repro_torch.launch.dryrun``), in
+            child processes, each on a fake world (meta tensors on a cuda
+            mesh; nothing allocated): (o1) (m1)'s own step on a world of 1,
+            its traced peak within 10 % of (m1)'s ``max_memory_allocated``
+            and its FLOPs beside (m1)'s FLOP bound's; (o2) (l)'s decode step
+            at a cache of P + 32, its peak beside (l)'s and its bytes beside
+            those of (l)'s decode bound; (o3) with four cards, (n3)'s decode
+            step on (data 1, model 4) on a fake world of 4, its collectives
+            equal to (n3)'s ``CollectiveLog`` in kind, count and bytes;
+            (o4) ``python -m repro_torch.launch.dryrun`` on four production
+            cells (16x16 or 2x16x16 fake worlds), each ``ok``, the train
+            cells' FLOPs over every device within (0.5, 3.0) x 6 N D. No
+            kernel of the port launches.
+            (l), (m), (n) and (o) run after phase 4's timings, last before
+            the result lines.
 4. result — fused and textdetect timed at every shape their wrappers
             counted on the cold and the detector path, and at one block, and
             bitmap at each shape it was counted at on path (e);
@@ -165,6 +178,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2584,6 +2598,145 @@ def run_sharded_path() -> dict:
     return out
 
 
+# ------------------------------------------------ phase 3: the dry-run (o)
+# path (o): the multi-pod dry-run of launch/dryrun.py, every part in a child
+# process (a fake process group is global to a process), all started
+# together. A trace child runs ``trace_cell`` on a fake world of its own with
+# the mesh on cuda (the local tensors are meta: nothing is allocated) and
+# prints one JSON line.
+_DRYRUN_CHILD = """
+import dataclasses, json, sys
+sys.path.insert(0, "src")
+from repro_torch.config import ShapeConfig, get_arch
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+job = json.loads(sys.argv[1])
+cfg = dataclasses.replace(get_arch(job["arch"]), **job.get("overrides", {}))
+dryrun.start_world(job["world"])
+mesh = make_mesh(job["mesh"], ("data", "model"), "cuda")
+out = dryrun.trace_cell(cfg, ShapeConfig(*job["shape"]), mesh, fsdp=job["fsdp"])
+print(json.dumps(out))
+"""
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", "single"), ("qwen1.5-110b", "decode_32k", "single"),
+                ("olmoe-1b-7b", "train_4k", "multi"), ("zamba2-2.7b", "long_500k", "multi"))
+DRYRUN_PEAK_TOL = 0.10  # (o1): the traced peak against (m1)'s max_memory_allocated
+
+
+def _dryrun_jobs(lm: dict) -> dict:
+    """(o1)-(o3)'s trace jobs: (m1)'s step, (l)'s decode step at its last
+    cache slot, (n3)'s decode step."""
+    P = lm["bf16"]["P"]
+    jobs = {"o1": {"arch": LM_ARCH, "shape": ["train", TRAIN_SEQ, TRAIN_BATCH, "train"], "world": 1,
+                   "mesh": [1, 1], "fsdp": True},
+            "o2": {"arch": LM_ARCH, "shape": ["serve", P + LM_MAX_NEW, LM_REQUESTS, "decode"], "world": 1,
+                   "mesh": [1, 1], "fsdp": False}}
+    if torch.cuda.device_count() >= SHARDED_CARDS:
+        jobs["o3"] = {"arch": SHARDED_ARCH, "shape": ["serve", P + 1, LM_REQUESTS, "decode"],
+                      "world": SHARDED_CARDS, "mesh": [1, SHARDED_CARDS], "fsdp": False}
+    return jobs
+
+
+def run_dryrun_path(lm: dict, train: dict, sharded: dict) -> dict:
+    """Path (o), the multi-pod dry-run, held against what (l), (m) and (n)
+    measured in this run; every part runs in a child process, all at once.
+    It launches none of the port's kernels: the launch counts must not move."""
+    from repro_torch.config import SHAPES, get_arch
+    from repro_torch.kernels import LAUNCHES
+
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    procs = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dryrun-") as tmp:
+        for name, job in _dryrun_jobs(lm).items():
+            procs[name] = subprocess.Popen([sys.executable, "-c", _DRYRUN_CHILD, json.dumps(job)],
+                                           cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch, shape, mesh in DRYRUN_CELLS:
+            procs[(arch, shape, mesh)] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                 "--mesh", mesh, "--out", f"{tmp}/{arch}__{shape}__{mesh}.json"],
+                cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        results = {}
+        try:
+            for name, proc in procs.items():
+                stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+                assert proc.returncode == 0, f"dry-run (o) {name}: exit {proc.returncode}\n{stderr[-3000:]}"
+                if isinstance(name, tuple):
+                    results[name] = json.loads(Path(tmp, "__".join(name) + ".json").read_text())
+                else:
+                    results[name] = json.loads(stdout.strip().splitlines()[-1])
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+    card = card_line()
+    out = {"card": card}
+
+    # (o1): (m1)'s step; the FLOP count behind (m1)'s bound, and with what
+    # remat "full" recomputes
+    o1, m1 = results["o1"], train["bf16"]
+    ratio = o1["peak_bytes_per_device"] / m1["peak_bytes"]
+    out["o1"] = {"traced_peak_bytes": o1["peak_bytes_per_device"], "measured_peak_bytes": m1["peak_bytes"],
+                 "peak_ratio": ratio, "program_flops": o1["program_flops"], "model_flops": m1["model_flops"],
+                 "model_plus_recompute_flops": m1["model_flops"] + m1["recompute_flops"],
+                 "flops_ratio": o1["program_flops"] / m1["model_flops"], "program_bytes": o1["program_bytes"],
+                 "trace_s": o1["trace_s"]}
+    log(f"dry-run (o1), (m1)'s step traced on a world of 1: {json.dumps(out['o1'])}")
+    assert abs(ratio - 1) <= DRYRUN_PEAK_TOL, \
+        f"(o1) traced peak {o1['peak_bytes_per_device']} against (m1)'s measured {m1['peak_bytes']}"
+
+    # (o2): (l)'s decode step at its last slot; the bytes behind (l)'s
+    # decode bound at that slot: every weight and the K/V of every position
+    o2, l1 = results["o2"], lm["bf16"]
+    cfg = get_arch(LM_ARCH)
+    bound_bytes = l1["weight_bytes"] + 2 * cfg.n_layers * LM_REQUESTS * (l1["P"] + LM_MAX_NEW) * \
+        cfg.n_kv_heads * cfg.hd * 2
+    out["o2"] = {"traced_peak_bytes": o2["peak_bytes_per_device"], "measured_serving_peak_bytes": l1["peak_bytes"],
+                 "program_bytes": o2["program_bytes"], "bound_bytes": bound_bytes,
+                 "bytes_ratio": o2["program_bytes"] / bound_bytes, "program_flops": o2["program_flops"],
+                 "trace_s": o2["trace_s"]}
+    log(f"dry-run (o2), (l)'s decode step at cache P + {LM_MAX_NEW} traced: {json.dumps(out['o2'])}")
+
+    # (o3): (n3)'s decode step, its collectives against (n3)'s CollectiveLog
+    if "o3" not in results or "n23" not in sharded:
+        log(f"dry-run (o3): (n3) needs {SHARDED_CARDS} cards; this host has {torch.cuda.device_count()}: "
+            f"not run")
+    else:
+        o3, n3 = results["o3"], sharded["n23"]
+        comms = n3["decode_step_comms"]
+        names = {"all_reduce": "all-reduce", "all_gather_into_tensor": "all-gather",
+                 "reduce_scatter_tensor": "reduce-scatter", "all_to_all_single": "all-to-all"}
+        measured = {names.get(k, k): v for k, v in comms["counts"].items()}
+        out["o3"] = {"traced_counts": o3["collective_counts"], "measured_counts": measured,
+                     "traced_bytes": sum(o3["collectives"].values()), "measured_bytes": comms["bytes"],
+                     "traced_peak_bytes": o3["peak_bytes_per_device"], "measured_peak_bytes": n3["peak_bytes"],
+                     "trace_s": o3["trace_s"]}
+        log(f"dry-run (o3), (n3)'s decode step on a fake world of {SHARDED_CARDS}: {json.dumps(out['o3'])}")
+        assert o3["collective_counts"] == measured and out["o3"]["traced_bytes"] == comms["bytes"], \
+            f"(o3) traced collectives differ from (n3)'s: {out['o3']}"
+
+    # (o4): four production cells through the command line
+    out["o4"] = {}
+    for (arch, shape, mesh) in DRYRUN_CELLS:
+        rec = results[(arch, shape, mesh)]
+        assert rec["status"] == "ok", f"(o4) {arch} {shape} {mesh}: {rec}"
+        row = {"peak_gb": rec["peak_bytes_per_device"] / 1e9, "hbm_gb": hw.HBM_PER_CHIP / 1e9,
+               "flops": rec["program_flops"], "bytes": rec["program_bytes"],
+               "collective_bytes_intra": rec["roofline"]["collective_bytes_intra"],
+               "collective_bytes_cross_pod": rec["roofline"]["collective_bytes_cross_pod"],
+               "trace_s": rec["trace_s"]}
+        if SHAPES[shape].kind == "train":
+            tokens = SHAPES[shape].global_batch * SHAPES[shape].seq_len
+            row["flops_over_6nd"] = rec["program_flops"] * rec["n_chips"] / (6 * rec["active_params"] * tokens)
+            assert 0.5 < row["flops_over_6nd"] < 3.0, f"(o4) {arch} {shape}: {row}"
+        out["o4"][f"{arch} {shape} {mesh}"] = row
+    log(f"dry-run (o4), production cells: {json.dumps(out['o4'])}")
+    assert dict(LAUNCHES) == before, f"path (o) launched port kernels: {before} -> {dict(LAUNCHES)}"
+    log(f"dry-run (o): card {card}; {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # ------------------------------------------------- phase 3: serving paths
 _MODALITIES = ["CT", "MR", "DX", "US", "CR", "PT"]
 _MAKES = ["GE Medical", "Siemens", "Philips", "Canon"]
@@ -3216,12 +3369,14 @@ def main() -> None:
     # It runs after every kernel timing: timed after (l) and its
     # torch.profiler traces, textdetect's and bitmap's event times were 3-4x
     # those timed without it, fused's unchanged
-    run_lm_path()
+    lm = run_lm_path()
     # training (m): qwen2-0.5b at full width, every family reduced, a
     # checkpoint, and the de-id -> training twin (scrub, phi_detect)
-    run_train_path()
+    train = run_train_path()
     # LM serving on a mesh (n): every card, and qwen1.5-110b over four
-    run_sharded_path()
+    sharded = run_sharded_path()
+    # the multi-pod dry-run (o), held against what (l), (m) and (n) measured
+    run_dryrun_path(lm, train, sharded)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -6,12 +6,18 @@ no-op. Inside one, a DTensor is redistributed to the rule's placements:
 the residual stream pinned to the Megatron-SP layout (sequence sharded
 over 'model' between blocks), heads sharded inside attention, and so on
 (``launch/shardings.activation_rules``).
+
+Also here: the layout arithmetic of a rank's block (``local_block``, which
+needs no tensor), the residual add that takes a block output's pending sum
+once (``add_residual``), the FSDP gather at a weight's use
+(``gather_batch_axes``), the contexts a checkpointed body carries into its
+recompute (``captured``), and ``ModelAxis`` for code run on local shards.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -22,12 +28,39 @@ _RULES: contextvars.ContextVar[Optional[Dict[str, object]]] = contextvars.Contex
 
 
 @contextlib.contextmanager
-def activation_sharding(rules: Dict[str, object]):
+def activation_sharding(rules: Optional[Dict[str, object]]):
     token = _RULES.set(rules)
     try:
         yield
     finally:
         _RULES.reset(token)
+
+
+@contextlib.contextmanager
+def implicitly_replicated(on: bool = True):
+    """DTensor's implicit replication of plain tensors (``implicit_replication``)
+    set to ``on``, and restored on exit to what it was, so that it nests."""
+    dispatcher = DTensor._op_dispatcher
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = on or before
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = before
+
+
+def captured(fn: Callable, *, placed: bool) -> Callable:
+    """``fn`` run, whenever it is called, under the activation rules in force
+    now and (``placed``) DTensor's implicit replication: for a checkpointed
+    body, whose recompute runs in the backward pass, outside the contexts
+    of the forward and perhaps on the autograd engine's device thread."""
+    rules = _RULES.get()
+
+    def run(*args):
+        with activation_sharding(rules), implicitly_replicated(placed):
+            return fn(*args)
+
+    return run
 
 
 def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -43,6 +76,54 @@ def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
     if tuple(x.placements) == placements:
         return x
     return x.redistribute(sharding.mesh, placements)
+
+
+def add_residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y`` for a block's output ``y`` that may be pending a sum over a
+    mesh axis (a row-sharded projection's): the sum is taken once, into the
+    residual stream's layout on that axis (an all-reduce, or under sequence
+    parallelism a reduce-scatter), where GSPMD takes it, and not left
+    pending for each later use to reduce again."""
+    if isinstance(y, DTensor) and any(p.is_partial() for p in y.placements):
+        like = x.placements if isinstance(x, DTensor) and x.ndim == y.ndim else [Replicate()] * y.device_mesh.ndim
+        want = []
+        for p, q in zip(y.placements, like):
+            if p.is_partial():
+                p = Replicate() if q.is_partial() else q
+            want.append(p)
+        y = y.redistribute(y.device_mesh, tuple(want))
+    return x + y
+
+
+# ---------------------------------------------------------- shard blocks
+def contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (no tensor made)."""
+    stride, n = [], 1
+    for extent in reversed(tuple(shape)):
+        stride.insert(0, n)
+        n *= extent
+    return tuple(stride)
+
+
+def local_block(shape: Sequence[int], mesh, placements) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(local shape, global offset) of this rank's block of a tensor of
+    ``shape`` laid out by ``placements`` on ``mesh``: torch's chunk rule
+    (chunks of ceil(n / k), the last ones short or empty; an empty block's
+    offset is the dim's extent), the mesh dims applied in order. Integer
+    arithmetic on the rank's mesh coordinate, so it runs under fake tensors,
+    where ``compute_local_shape_and_global_offset`` reads a tensor."""
+    coord = mesh.get_coordinate()
+    local, offset = list(shape), [0] * len(shape)
+    for i, p in enumerate(placements):
+        if not isinstance(p, Shard):
+            continue
+        d, n = p.dim, local[p.dim]
+        full = -(-n // mesh.size(i))
+        start = full * coord[i]
+        size = max(0, min(n, start + full) - start)
+        local[d] = size
+        offset[d] = offset[d] + start if size else shape[d]
+    return tuple(local), tuple(offset)
 
 
 # ------------------------------------------------------ reshapes of heads
@@ -75,6 +156,19 @@ def merge_dims(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 # ------------------------------------------ explicit TP on local shards
+def gather_batch_axes(t: torch.Tensor) -> torch.Tensor:
+    """A parameter with every mesh axis but ``model`` that shards it gathered
+    (an all-gather; in backward, the reduce-scatter of its gradient): the
+    gather GSPMD inserts at the use of an FSDP-sharded weight. A plain
+    tensor, or one sharded over ``model`` alone, is returned as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    names = t.device_mesh.mesh_dim_names
+    want = tuple(Replicate() if isinstance(p, Shard) and names[i] != "model" else p
+                 for i, p in enumerate(t.placements))
+    return t.redistribute(t.device_mesh, want) if want != tuple(t.placements) else t
+
+
 def row_layout(x: DTensor) -> tuple:
     """x's layout with each row whole on its ranks: the batch sharding
     (dim 0) kept, every other mesh axis replicated."""
@@ -102,11 +196,19 @@ class ModelAxis:
             out[self.m] = Shard(dim)
         return tuple(out)
 
-    def whole_rows(self, t: DTensor) -> torch.Tensor:
-        """This rank's rows of ``t``, every column (gathers over ``model``)."""
+    def whole_rows(self, t: DTensor, partial_grad: bool = False) -> torch.Tensor:
+        """This rank's rows of ``t``, every column (gathers over ``model``).
+        ``partial_grad``: the rank uses them in its own way (its slice of
+        the channels or heads), so the local result's gradient is pending a
+        sum over ``model`` (the backward all-reduces or reduce-scatters it);
+        without, every rank uses them alike and its gradient is whole."""
         if tuple(t.placements) != self.rows:
             t = t.redistribute(self.mesh, self.rows)
-        return t.to_local()
+        if not partial_grad:
+            return t.to_local()
+        grad = list(self.rows)
+        grad[self.m] = Partial()
+        return t.to_local(grad_placements=tuple(grad))
 
     def local(self, t: DTensor, dim: int) -> torch.Tensor:
         """This rank's shard of an activation or cache laid out by
@@ -118,23 +220,32 @@ class ModelAxis:
 
     def param(self, t: torch.Tensor, dim: Optional[int]) -> Tuple[torch.Tensor, int, int]:
         """(local shard, start, stop along ``dim``) of a parameter sharded
-        over ``model`` alone at ``dim`` (None: replicated). Any other layout
-        is refused: it would take a gather of the parameter."""
+        over ``model`` at ``dim`` (None: replicated). An FSDP shard over the
+        batch axes is gathered first (``gather_batch_axes``); any other
+        layout over ``model`` is refused: it would take a gather of the
+        parameter over ``model``."""
+        t = gather_batch_axes(t)
         want = tuple(Replicate() if i != self.m or dim is None else Shard(dim)
                      for i in range(self.mesh.ndim))
         if tuple(t.placements) != want:
-            raise ValueError(f"parameter laid out as {t.placements}, expected {want} "
-                             "(place the model with fsdp=False)")
+            raise ValueError(f"parameter laid out as {t.placements}, expected {want}")
+        # each rank applies it to its own rows: its gradient is pending a
+        # sum over the batch's axes
+        grad = tuple(Partial() if isinstance(r, Shard) else w for r, w in zip(self.rows, want))
+        local = t.to_local(grad_placements=grad)
         if dim is None:
-            return t.to_local(), 0, 0
-        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+            return local, 0, 0
+        size, offset = local_block(t.shape, self.mesh, want)
+        return local, offset[dim], offset[dim] + size[dim]
 
-        local, offset = compute_local_shape_and_global_offset(t.shape, self.mesh, want)
-        return t.to_local(), offset[dim], offset[dim] + local[dim]
+    def psum(self, t: torch.Tensor, partial_grad: bool = False) -> torch.Tensor:
+        """The sum of every rank's ``t`` over ``model`` (an all-reduce);
+        ``partial_grad`` as in ``whole_rows``."""
+        return self.whole_rows(self.wrap(t, partial=True), partial_grad)
 
-    def psum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of every rank's ``t`` over ``model`` (an all-reduce)."""
-        return self.whole_rows(self.wrap(t, partial=True))
+    def pmax(self, t: torch.Tensor) -> torch.Tensor:
+        """The largest of every rank's ``t`` over ``model`` (an all-reduce)."""
+        return self.whole_rows(self.wrap(t, partial="max"))
 
     def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the ranks that hold other rows of the batch
@@ -143,25 +254,23 @@ class ModelAxis:
         whole = [Replicate()] * len(part)
         return DTensor.from_local(t, self.mesh, part, run_check=False).redistribute(self.mesh, whole).to_local()
 
-    def gather(self, t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    def gather(self, t: torch.Tensor, dim: int, size: int, partial_grad: bool = False) -> torch.Tensor:
         """Every rank's ``t`` (sharded over ``model`` at ``dim``, ``size``
-        in all) joined along ``dim`` (an all-gather)."""
-        return self.whole_rows(self.wrap(t, dim, size))
+        in all) joined along ``dim`` (an all-gather); ``partial_grad`` as in
+        ``whole_rows``."""
+        return self.whole_rows(self.wrap(t, dim, size), partial_grad)
 
     def wrap(self, t: torch.Tensor, dim: Optional[int] = None, size: Optional[int] = None,
-             partial: bool = False) -> DTensor:
+             partial=False) -> DTensor:
         """A local result (batch at dim 0) as a DTensor: sharded over
         ``model`` at ``dim`` (``size`` the global extent there), or pending a
-        sum over ``model`` (``partial``), or whole."""
+        reduction over ``model`` (``partial``: True for a sum, or the
+        reduction's name), or whole."""
         placements = list(self.layout(dim))
         if partial:
-            placements[self.m] = Partial()
+            placements[self.m] = Partial() if partial is True else Partial(partial)
         shape = [self.batch] + list(t.shape[1:])
         if dim is not None:
             shape[dim] = size
-        stride, n = [], 1
-        for extent in reversed(shape):
-            stride.insert(0, n)
-            n *= extent
         return DTensor.from_local(t, self.mesh, placements, run_check=False, shape=torch.Size(shape),
-                                  stride=tuple(stride))
+                                  stride=contiguous_stride(shape))

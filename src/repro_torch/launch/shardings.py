@@ -34,6 +34,7 @@ from torch.distributed.tensor import Replicate, Shard
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.config.model import ModelConfig, ShapeConfig
+from repro_torch.launch.act_sharding import contiguous_stride, local_block
 from repro_torch.launch.mesh import mesh_axes
 from repro_torch.models.spec import TensorSpec, tree_map
 
@@ -262,23 +263,15 @@ def _local_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def _local_block(shape, mesh, placements) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
-    """(local shape, global offset) of this rank's shard."""
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-
-    local, offset = compute_local_shape_and_global_offset(tuple(shape), mesh, placements)
-    return tuple(local), tuple(offset)
-
-
 def place_zeros(spec: TensorSpec, rules: Dict[str, Optional[object]], mesh) -> torch.Tensor:
     """A zero DTensor of ``spec`` laid out by ``rules`` on ``mesh``."""
     from torch.distributed.tensor import DTensor
 
     placements = to_placements(spec_to_pspec(spec, rules), mesh)
-    local, _ = _local_block(spec.shape, mesh, placements)
+    local, _ = local_block(spec.shape, mesh, placements)
     data = torch.zeros(local, dtype=spec.dtype, device=_local_device(mesh))
     return DTensor.from_local(data, mesh, placements, run_check=False, shape=spec.shape,
-                              stride=torch.empty(spec.shape, device="meta").stride())
+                              stride=contiguous_stride(spec.shape))
 
 
 def _block_seed(seed: int, path: str, offset: Tuple[int, ...]) -> int:
@@ -314,7 +307,7 @@ def _draw_shard(spec: TensorSpec, path: str, mesh, placements, seed: int) -> tor
     """This rank's shard of a leaf. A stacked leaf (3 dims or more) is drawn
     one leading index at a time, so no full leaf, and no full shard in
     float32, is ever made."""
-    local, offset = _local_block(spec.shape, mesh, placements)
+    local, offset = local_block(spec.shape, mesh, placements)
     dev = _local_device(mesh)
     if len(local) < 3:
         return _draw_block(spec, local, offset, seed, path, dev)
@@ -350,7 +343,7 @@ def place_model(model, shardings, *, seed: Optional[int] = None):
             if seed is not None:
                 local = _draw_shard(spec, path, mesh, placements, seed)
                 data = DTensor.from_local(local, mesh, placements, run_check=False, shape=spec.shape,
-                                          stride=torch.empty(spec.shape, device="meta").stride())
+                                          stride=contiguous_stride(spec.shape))
             else:
                 data = distribute_tensor(param.detach().to(dev), mesh, placements, src_data_rank=None)
             _set_param(model, path, data, param.requires_grad)

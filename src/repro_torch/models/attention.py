@@ -21,7 +21,7 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 NEG_INF = -1e30
 
@@ -127,12 +127,17 @@ def over_local_heads(fn: Callable, q: torch.Tensor, k: torch.Tensor, v: torch.Te
     kv_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in q_pl)
     q = q.redistribute(mesh, q_pl) if q.placements != q_pl else q
     k, v = (t.redistribute(mesh, kv_pl) if t.placements != kv_pl else t for t in (k, v))
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from repro_torch.launch.act_sharding import local_block
 
-    local, offset = compute_local_shape_and_global_offset(q.shape, mesh, q_pl)
+    local, offset = local_block(q.shape, mesh, q_pl)
     H, KV = q.shape[2], k.shape[2]
     G, h0, n = H // KV, offset[2], local[2]
-    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    ql = q.to_local()
+    # a rank that holds some of the heads uses its own heads' K/V: their
+    # gradients are pending a sum over the ranks
+    grad = tuple(Partial() if p == Replicate() and isinstance(qp, Shard) else p
+                 for p, qp in zip(kv_pl, q_pl)) if n < H else None
+    kl, vl = k.to_local(grad_placements=grad), v.to_local(grad_placements=grad)
     if n < H:
         if h0 % G == 0 and n % G == 0:
             kl, vl = kl[:, :, h0 // G:(h0 + n) // G], vl[:, :, h0 // G:(h0 + n) // G]
@@ -159,40 +164,76 @@ def _decode_core(qg: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     return torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
 
 
+def _seq_dims(cache: DTensor) -> list:
+    """The mesh dims that shard a cache's sequence (dim 1)."""
+    return [i for i, p in enumerate(cache.placements) if isinstance(p, Shard) and p.dim == 1]
+
+
 def _decode_on_shards(qg: DTensor, k_cache: DTensor, v_cache: DTensor, pos: int, window: int,
                       scale: float) -> DTensor:
     """``_decode_core`` on each rank's shards of a cache laid out by
     ``cache_shardings`` (batch, and kv heads or head dim, sharded): the
     query follows the cache's layout, and with the head dim sharded the
-    scores are all-reduced over its axes before the softmax."""
-    from torch.distributed.tensor import Partial
+    scores are all-reduced over its axes before the softmax. A cache
+    sharded along the sequence (``long_500k``'s ``cache_seq``) gives each
+    rank its positions' scores, with the window and ``pos`` masks at their
+    global positions, and the ranks' softmaxes are combined by log-sum-exp:
+    an all-reduce of the running max, then of the exp-sums and of the
+    weighted values."""
+    from repro_torch.launch.act_sharding import contiguous_stride, local_block
 
     mesh = k_cache.device_mesh
+    seq = _seq_dims(k_cache)
     to_q = {0: Shard(0), 2: Shard(1), 3: Shard(3)}
-    q_pl, part = [], []
+    q_pl, part, s_pl = [], [], []
     for p in k_cache.placements:
+        if isinstance(p, Shard) and p.dim == 1:
+            q_pl.append(Replicate())
+            part.append(Shard(3))
+            s_pl.append(Shard(3))
+            continue
         if isinstance(p, Shard) and p.dim not in to_q:
             raise ValueError(f"decode over a cache sharded at dim {p.dim} is not supported")
         q_pl.append(to_q[p.dim] if isinstance(p, Shard) else Replicate())
         part.append(Partial() if isinstance(p, Shard) and p.dim == 3 else q_pl[-1])
-    q_pl = tuple(q_pl)
+        s_pl.append(Replicate() if isinstance(part[-1], Partial) else part[-1])
+    q_pl, part, s_pl = tuple(q_pl), tuple(part), tuple(s_pl)
     qg = qg.redistribute(mesh, q_pl) if tuple(qg.placements) != q_pl else qg
     if tuple(v_cache.placements) != tuple(k_cache.placements):
         v_cache = v_cache.redistribute(mesh, k_cache.placements)
     B, KV, G, _ = qg.shape
     s_shape = (B, KV, G, k_cache.shape[1])
-    s_pl = tuple(Replicate() if isinstance(p, Partial) else p for p in part)
 
     def reduce(s):
-        if s_pl == tuple(part):
+        if s_pl == part:
             return s
-        return DTensor.from_local(s, mesh, part, run_check=False, shape=s_shape,
-                                  stride=torch.empty(s_shape, device="meta").stride()
+        return DTensor.from_local(s, mesh, part, run_check=False, shape=s_shape, stride=contiguous_stride(s_shape)
                                   ).redistribute(mesh, s_pl).to_local()
 
-    out = _decode_core(qg.to_local(), k_cache.to_local(), v_cache.to_local(), pos, window, scale, reduce)
-    return DTensor.from_local(out, mesh, q_pl, run_check=False, shape=qg.shape,
-                              stride=torch.empty(qg.shape, device="meta").stride())
+    ql, kl, vl = qg.to_local(), k_cache.to_local(), v_cache.to_local()
+    if not seq:
+        out = _decode_core(ql, kl, vl, pos, window, scale, reduce)
+    else:
+        def combine(t, layout, shape, op):
+            pl = tuple(Partial(op) if i in seq else p for i, p in enumerate(layout))
+            whole = tuple(Replicate() if i in seq else p for i, p in enumerate(layout))
+            return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape, stride=contiguous_stride(shape)
+                                      ).redistribute(mesh, whole).to_local()
+
+        s0 = local_block(k_cache.shape, mesh, k_cache.placements)[1][1]
+        s = reduce(torch.einsum("bkgd,bskd->bkgs", (ql * scale).float(), kl.float()))
+        idx = s0 + torch.arange(kl.shape[1], device=ql.device)
+        keep = idx <= pos
+        if window:
+            keep &= idx > pos - window
+        s = torch.where(keep[None, None, None, :], s, NEG_INF)
+        m = combine(torch.amax(s, dim=-1), s_pl, (B, KV, G), "max")
+        p = torch.exp(s - m[..., None])
+        total = combine(torch.sum(p, dim=-1), s_pl, (B, KV, G), "sum")
+        acc = combine(torch.einsum("bkgs,bskd->bkgd", p.to(vl.dtype).float(), vl.float()), q_pl,
+                      tuple(qg.shape), "sum")
+        out = acc / total[..., None]
+    return DTensor.from_local(out, mesh, q_pl, run_check=False, shape=qg.shape, stride=contiguous_stride(qg.shape))
 
 
 def decode_attention(
@@ -229,10 +270,34 @@ def update_kv_cache(
     v_new: torch.Tensor,
     pos: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Writes the new token's K/V at ``pos`` in place; returns the caches."""
+    """Writes the new token's K/V at ``pos`` in place; returns the caches.
+    A cache sharded along the sequence is written only on the ranks that
+    hold position ``pos``."""
+    if isinstance(k_cache, DTensor) and _seq_dims(k_cache):
+        _write_on_owner(k_cache, k_new, pos)
+        _write_on_owner(v_cache, v_new, pos)
+        return k_cache, v_cache
     k_cache[:, pos] = k_new.to(k_cache.dtype)
     v_cache[:, pos] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def _write_on_owner(cache: DTensor, new: torch.Tensor, pos: int) -> None:
+    """``cache[:, pos] = new`` on the ranks whose block of the sequence holds
+    ``pos``: ``new`` (B, KV, hd) is brought to the cache's layout without its
+    sequence dim (a collective every rank takes part in), then written into
+    the owners' local blocks."""
+    from repro_torch.launch.act_sharding import local_block
+
+    mesh = cache.device_mesh
+    row = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else
+                Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p for p in cache.placements)
+    new = new.to(cache.dtype)
+    if tuple(new.placements) != row:
+        new = new.redistribute(mesh, row)
+    local, offset = local_block(cache.shape, mesh, cache.placements)
+    if offset[1] <= pos < offset[1] + local[1]:
+        cache.to_local()[:, pos - offset[1]] = new.to_local()
 
 
 def reference_attention(q, k, v, *, causal, window=0):

@@ -10,7 +10,7 @@ from typing import Optional
 import torch
 
 from repro_torch.config.model import ModelConfig
-from repro_torch.launch.act_sharding import constrain, merge_dims, split_dim
+from repro_torch.launch.act_sharding import add_residual, constrain, merge_dims, split_dim
 from repro_torch.models.attention import (
     chunked_attention,
     chunked_attention_repeat,
@@ -105,16 +105,16 @@ def dense_layer_specs(cfg: ModelConfig) -> dict:
 def dense_layer_prefill(lp, cfg, x, positions):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     att, kv = attn_apply(lp["attn"], cfg, h, positions)
-    x = x + att
-    x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    x = add_residual(x, att)
+    x = add_residual(x, mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps)))
     return x, kv
 
 
 def dense_layer_decode(lp, cfg, x, k_cache, v_cache, pos):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     att, k_cache, v_cache = attn_decode_apply(lp["attn"], cfg, h, k_cache, v_cache, pos)
-    x = x + att
-    x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+    x = add_residual(x, att)
+    x = add_residual(x, mlp_apply(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps)))
     return x, k_cache, v_cache
 
 
@@ -132,17 +132,17 @@ def moe_layer_prefill(lp, cfg, x, positions):
     """Returns (x, (k, v), aux)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     att, kv = attn_apply(lp["attn"], cfg, h, positions)
-    x = x + att
+    x = add_residual(x, att)
     ff, aux = moe_apply(lp["moe"], cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
-    return x + ff, kv, aux
+    return add_residual(x, ff), kv, aux
 
 
 def moe_layer_decode(lp, cfg, x, k_cache, v_cache, pos):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     att, k_cache, v_cache = attn_decode_apply(lp["attn"], cfg, h, k_cache, v_cache, pos)
-    x = x + att
+    x = add_residual(x, att)
     ff, _ = moe_apply(lp["moe"], cfg, rms_norm(x, lp["ln2"], cfg.norm_eps)[:, None])
-    return x + ff[:, 0], k_cache, v_cache
+    return add_residual(x, ff[:, 0]), k_cache, v_cache
 
 
 # ------------------------------------------------- zamba2 shared attention
@@ -166,13 +166,13 @@ def shared_attn_specs(cfg: ModelConfig) -> dict:
 
 
 def _shared_mlp(sp, cfg, x, e0):
-    return x + mlp_apply(sp["mlp"], rms_norm(torch.cat([x, e0], dim=-1), sp["ln2"], cfg.norm_eps))
+    return add_residual(x, mlp_apply(sp["mlp"], rms_norm(torch.cat([x, e0], dim=-1), sp["ln2"], cfg.norm_eps)))
 
 
 def shared_attn_prefill(sp, cfg, x, e0, positions):
     cat = torch.cat([x, e0], dim=-1)
     att, kv = attn_apply(sp["attn"], cfg, rms_norm(cat, sp["ln"], cfg.norm_eps), positions)
-    return _shared_mlp(sp, cfg, x + att, e0), kv
+    return _shared_mlp(sp, cfg, add_residual(x, att), e0), kv
 
 
 def shared_attn_decode(sp, cfg, x, e0, k_cache, v_cache, pos):
@@ -180,4 +180,4 @@ def shared_attn_decode(sp, cfg, x, e0, k_cache, v_cache, pos):
     att, k_cache, v_cache = attn_decode_apply(
         sp["attn"], cfg, rms_norm(cat, sp["ln"], cfg.norm_eps), k_cache, v_cache, pos
     )
-    return _shared_mlp(sp, cfg, x + att, e0), k_cache, v_cache
+    return _shared_mlp(sp, cfg, add_residual(x, att), e0), k_cache, v_cache

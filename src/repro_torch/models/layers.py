@@ -13,7 +13,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.model import ModelConfig
-from repro_torch.launch.act_sharding import constrain
+from repro_torch.launch.act_sharding import ModelAxis, captured, constrain, gather_batch_axes, local_block
 from repro_torch.models.spec import TensorSpec
 
 
@@ -39,7 +39,10 @@ def _fit_input(a: torch.Tensor, w: DTensor) -> torch.Tensor:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b``, ``b`` a weight: on a mesh, an FSDP-sharded weight is
+    gathered over the batch axes at its use (``gather_batch_axes``)."""
     if isinstance(a, DTensor) and isinstance(b, DTensor):
+        b = gather_batch_axes(b)
         a = _fit_input(a, b)
     return torch.matmul(*_common(a, b))
 
@@ -68,6 +71,10 @@ def rope_freqs(positions: torch.Tensor, head_dim: int, theta: float) -> tuple[to
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x: (B, S, H, hd); cos/sin: (S, hd/2) or broadcastable."""
     half = x.shape[-1] // 2
+    if isinstance(x, DTensor) and not isinstance(cos, DTensor):
+        # the tables take part replicated, in backward too (no mixed op)
+        rep = [Replicate()] * x.device_mesh.ndim
+        cos, sin = (DTensor.from_local(t, x.device_mesh, rep, run_check=False) for t in (cos, sin))
     x1f, x2f = x[..., :half].float(), x[..., half:].float()
     c = cos[None, :, None, :].float()
     s = sin[None, :, None, :].float()
@@ -105,7 +112,7 @@ def embed_tokens(p: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Ten
         # F.embedding, not indexing: on a vocab-sharded table DTensor looks
         # the rows up where they live (a masked partial sum), no gather;
         # the sum is taken at once, as the pending mask serves one reduction
-        out = F.embedding(tokens, p["tok"])
+        out = F.embedding(tokens, gather_batch_axes(p["tok"]))
         whole = [Replicate() if q.is_partial() else q for q in out.placements]
         return out.redistribute(out.device_mesh, whole).to(dtype)
     return p["tok"][tokens].to(dtype)
@@ -120,11 +127,36 @@ def _ce_chunk(xs: torch.Tensor, head: torch.Tensor, ls: torch.Tensor):
     """(sum of lse - gold over the valid labels, their count) of one chunk;
     its logits are float32."""
     logits = constrain(matmul(xs, head).float(), "logits")     # (B, C, V)
+    if isinstance(logits, DTensor):
+        return _ce_on_shards(logits, ls)
     m = torch.amax(logits, dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
     gold = torch.gather(logits, -1, ls.clamp_min(0)[..., None])[..., 0]
     valid = ls >= 0
     return torch.sum(torch.where(valid, lse - gold, 0.0)), torch.sum(valid)
+
+
+def _ce_on_shards(logits: DTensor, ls: torch.Tensor):
+    """``_ce_chunk``'s sums on a mesh, on local shards: each rank holds its
+    rows and its slice [v0, v1) of the vocab; the max, the exp-sum and the
+    gold logit are reduced over ``model`` and the two sums over the batch's
+    axes (DTensor's masked gather of a vocab-sharded dim does not serve the
+    gold logit's squeeze). The max only shifts the exponent: no gradient
+    flows through it."""
+    tp = ModelAxis(logits)
+    local = tp.local(logits, 2)
+    size, offset = local_block(logits.shape, tp.mesh, tp.layout(2))
+    v0, nv = offset[2], size[2]
+    labels = tp.whole_rows(ls) if isinstance(ls, DTensor) else ls
+    m = tp.pmax(torch.amax(local.detach(), dim=-1, keepdim=True))
+    lse = m[..., 0] + torch.log(tp.psum(torch.sum(torch.exp(local - m), dim=-1)))
+    idx = labels.clamp_min(0) - v0
+    mine = (idx >= 0) & (idx < nv)
+    gold = torch.gather(local, -1, idx.clamp(0, max(nv - 1, 0))[..., None])[..., 0]
+    gold = tp.psum(torch.where(mine, gold, 0.0))
+    valid = labels >= 0
+    return (tp.batch_sum(torch.sum(torch.where(valid, lse - gold, 0.0))),
+            tp.batch_sum(torch.sum(valid).float()))
 
 
 def chunked_ce_loss(
@@ -137,18 +169,22 @@ def chunked_ce_loss(
     While autograd records, each chunk is checkpointed: the backward pass
     recomputes its logits, so one chunk's logits are live at a time."""
     B, S, d = x.shape
-    if S % chunk:
+    if S % chunk and not isinstance(x, DTensor):
+        # on a mesh the last chunk is short instead (torch 2.11's DTensor
+        # pads a sequence-sharded tensor into a malformed layout)
         pad = chunk - S % chunk
         x = F.pad(x, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-1)
         S += pad
     grad = torch.is_grad_enabled()
+    # the recompute in backward runs under the forward's activation rules
+    ce_chunk = captured(_ce_chunk, placed=isinstance(x, DTensor)) if grad else _ce_chunk
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     count = torch.zeros((), dtype=torch.float32, device=x.device)
-    for c in range(S // chunk):
-        xs, ls = x[:, c * chunk:(c + 1) * chunk], labels[:, c * chunk:(c + 1) * chunk]
+    for c0 in range(0, S, chunk):
+        xs, ls = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         if grad:
-            t, n = checkpoint(_ce_chunk, xs, head, ls, use_reentrant=False, preserve_rng_state=False)
+            t, n = checkpoint(ce_chunk, xs, head, ls, use_reentrant=False, preserve_rng_state=False)
         else:
             t, n = _ce_chunk(xs, head, ls)
         total = total + t

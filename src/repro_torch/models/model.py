@@ -33,12 +33,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, distribute_tensor
-from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.config.model import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.launch.act_sharding import constrain
+from repro_torch.launch.act_sharding import add_residual, captured, constrain, implicitly_replicated
 from repro_torch.models import blocks, ssm
 from repro_torch.models.layers import chunked_ce_loss, embed_specs, embed_tokens, head_matrix, matmul, rms_norm
 from repro_torch.models.spec import SpecTree, TensorSpec, tree_abstract, tree_init, tree_items, tree_map
@@ -72,8 +71,11 @@ def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat(fn: Callable, policy: str) -> Callable:
-    """``fn`` under the config's remat policy while autograd records."""
+def _remat(fn: Callable, policy: str, placed: bool = False) -> Callable:
+    """``fn`` under the config's remat policy while autograd records. The
+    checkpointed body takes with it the activation rules in force now and,
+    on a mesh (``placed``), DTensor's implicit replication: its recompute in
+    the backward pass runs the forward's ops and collectives."""
     if policy == "none" or not torch.is_grad_enabled():
         return fn
     kw: Dict[str, Any] = dict(use_reentrant=False, preserve_rng_state=False)
@@ -81,7 +83,8 @@ def _remat(fn: Callable, policy: str) -> Callable:
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
     elif policy != "full":
         raise ValueError(f"unknown remat policy {policy!r}")
-    return lambda *args: checkpoint(fn, *args, **kw)
+    body = captured(fn, placed=placed)
+    return lambda *args: checkpoint(body, *args, **kw)
 
 
 def _module(tree: Dict[str, Any]) -> nn.Module:
@@ -192,7 +195,7 @@ class Model(nn.Module):
     def _placed(self):
         """Plain tensors made inside a placed model's step (positions,
         masks, RoPE tables, buffers) take part as replicated DTensors."""
-        return implicit_replication() if self.mesh is not None else contextlib.nullcontext()
+        return implicitly_replicated() if self.mesh is not None else contextlib.nullcontext()
 
     def params(self) -> Dict[str, Any]:
         """The parameters as a nested dict, keyed as the reference's tree."""
@@ -207,7 +210,8 @@ class Model(nn.Module):
 
     def _input(self, x) -> torch.Tensor:
         """An input on the model's device; on a mesh, a DTensor with its
-        batch over the data axes (``launch.shardings.input_shardings``)."""
+        batch over the data axes, or replicated where the batch is one row
+        (``launch.shardings.input_shardings``)."""
         if isinstance(x, DTensor):
             return x
         x = torch.as_tensor(x, device=self.device)
@@ -215,8 +219,8 @@ class Model(nn.Module):
             return x
         from repro_torch.launch.shardings import batch_pspec, to_placements
 
-        return distribute_tensor(x, self.mesh, to_placements(batch_pspec(self.mesh, x.ndim), self.mesh),
-                                 src_data_rank=None)
+        spec = batch_pspec(self.mesh, x.ndim) if x.ndim and x.shape[0] > 1 else ()
+        return distribute_tensor(x, self.mesh, to_placements(spec, self.mesh), src_data_rank=None)
 
     def _embed(self, params, batch) -> torch.Tensor:
         x = embed_tokens(params["embed"], self._input(batch["tokens"]).long(), self.dtype)
@@ -276,7 +280,7 @@ class Model(nn.Module):
                     h, kv = blocks.dense_layer_prefill(lp, cfg, h, positions)
                     return h, kv, None
 
-            layer = _remat(body, cfg.remat)
+            layer = _remat(body, cfg.remat, self.mesh is not None)
             ks, vs = [], []
             for lp in _unstack(params["layers"]):
                 x, (k, v), a = layer(x, lp)
@@ -292,9 +296,9 @@ class Model(nn.Module):
             def body(h, lp):
                 pre = rms_norm(h, lp["ln"], cfg.norm_eps)
                 out, h_last = ssm.mamba1_forward(lp["mamba"], cfg, pre)
-                return h + out, h_last, self._conv_tail(pre, lp) if want_cache else None
+                return add_residual(h, out), h_last, self._conv_tail(pre, lp) if want_cache else None
 
-            layer = _remat(body, cfg.remat)
+            layer = _remat(body, cfg.remat, self.mesh is not None)
             hs, convs = [], []
             for lp in _unstack(params["layers"]):
                 x, h_last, conv = layer(x, lp)
@@ -316,11 +320,11 @@ class Model(nn.Module):
                     if want_cache:
                         hs.append(h_last)
                         convs.append(self._conv_tail(pre, lp))
-                    h = res(h + out)
+                    h = res(add_residual(h, out))
                 h, kv = blocks.shared_attn_prefill(params["shared"], cfg, h, e0, positions)
                 return res(h), hs, convs, kv
 
-            layer = _remat(group, cfg.remat)
+            layer = _remat(group, cfg.remat, self.mesh is not None)
             hs, convs, ks, vs = [], [], [], []
             for gp in _unstack(params["groups"]):
                 x, h_g, c_g, (k, v) = layer(x, _unstack(gp))
@@ -390,7 +394,7 @@ class Model(nn.Module):
                 lp = _at(params["layers"], i)
                 out, cache["ssm"][i], cache["conv"][i] = ssm.mamba1_decode(
                     lp["mamba"], cfg, rms_norm(x, lp["ln"], cfg.norm_eps), cache["ssm"][i], cache["conv"][i])
-                x = x + out
+                x = add_residual(x, out)
         elif cfg.family == "hybrid":
             # concat-skip uses the *current* token's embedding (matches the
             # per-position e0 stream in the full forward pass)
@@ -401,7 +405,7 @@ class Model(nn.Module):
                     out, cache["ssm"][g, a], cache["conv"][g, a] = ssm.mamba2_decode(
                         lp["mamba"], cfg, rms_norm(x, lp["ln"], cfg.norm_eps),
                         cache["ssm"][g, a], cache["conv"][g, a])
-                    x = x + out
+                    x = add_residual(x, out)
                 x, _, _ = blocks.shared_attn_decode(params["shared"], cfg, x, e0, cache["k"][g],
                                                     cache["v"][g], pos)
         else:

@@ -140,7 +140,8 @@ def _moe_apply_on_shards(p: dict, cfg: ModelConfig, x: DTensor) -> Tuple[DTensor
     dim = 0 if ep else 2 if isinstance(where, Shard) else None
     gate, up = tp.param(p["gate"], dim)[0], tp.param(p["up"], dim)[0]
     down = tp.param(p["down"], None if dim is None else 0 if ep else 1)[0]
-    xin = tp.local(ex_in, 1) if ep else tp.whole_rows(ex_in)
+    # TP inside the experts: each rank runs its own slice of every expert
+    xin = tp.local(ex_in, 1) if ep else tp.whole_rows(ex_in, partial_grad=dim is not None)
     h = F.silu(einsum("becd,edf->becf", xin, gate)) * einsum("becd,edf->becf", xin, up)
     if dim is not None:
         hdim = 1 if ep else 3

@@ -54,6 +54,11 @@ def _same(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _psum_split(tp: ModelAxis):
+    """``tp.psum`` of a product each rank then uses on its own channels."""
+    return lambda t: tp.psum(t, partial_grad=True)
+
+
 def _mamba1_local(p: dict, tp: ModelAxis) -> dict:
     """This rank's slice of a mamba-1 layer's parameters: the d_inner
     channels [c0, c1) over ``model``; ``c0``/``c1`` under those keys."""
@@ -74,7 +79,7 @@ def _mamba1_inputs(p: dict, cfg: ModelConfig, xz: torch.Tensor):
         return p, None, x, z
     tp = ModelAxis(xz)
     p = _mamba1_local(p, tp)
-    xz, c0, c1, di = tp.whole_rows(xz), p["c0"], p["c1"], cfg.d_inner
+    xz, c0, c1, di = tp.whole_rows(xz, partial_grad=True), p["c0"], p["c1"], cfg.d_inner
     return p, tp, xz[..., c0:c1], xz[..., di + c0:di + c1]
 
 
@@ -120,7 +125,7 @@ def mamba1_forward(p: dict, cfg: ModelConfig, u: torch.Tensor, h0=None):
     x = F.silu(_causal_conv(x, p["conv_w"], p["conv_b"]))
     if h0 is None:
         h0 = torch.zeros((x.shape[0], x.shape[-1], cfg.ssm_state), dtype=torch.float32, device=x.device)
-    y, h_last = _mamba1_core(p, cfg, x, h0, _same if tp is None else tp.psum)
+    y, h_last = _mamba1_core(p, cfg, x, h0, _same if tp is None else _psum_split(tp))
     y = (y * F.silu(z.float())).to(u.dtype)
     out = matmul(y, p["out_proj"])
     if tp is None:
@@ -135,7 +140,7 @@ def mamba1_decode(p: dict, cfg: ModelConfig, u: torch.Tensor, h: torch.Tensor, c
     p, tp, x, z = _mamba1_inputs(p, cfg, matmul(u, p["in_proj"]))  # (B, di)
     reduce = _same
     if tp is not None:  # as in mamba1_forward, on this rank's channels
-        h, conv_buf, reduce = tp.local(h, 1), tp.local(conv_buf, 2), tp.psum
+        h, conv_buf, reduce = tp.local(h, 1), tp.local(conv_buf, 2), _psum_split(tp)
     window = torch.cat([conv_buf, x[:, None]], dim=1)  # (B, K, di)
     x = F.silu(_conv_step(window, p["conv_w"], p["conv_b"])).to(u.dtype)
 
@@ -213,7 +218,7 @@ def _rms(x, scale, eps, tp: Optional[ModelAxis] = None, width: int = 0):
     if tp is None:
         ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     else:
-        ms = tp.psum(torch.sum(xf * xf, dim=-1, keepdim=True)) / width
+        ms = tp.psum(torch.sum(xf * xf, dim=-1, keepdim=True), partial_grad=True) / width
     return xf * torch.rsqrt(ms + eps) * scale.float()
 
 
@@ -249,8 +254,8 @@ def _mamba2_inputs(p: dict, cfg: ModelConfig, zxbcdt: torch.Tensor, conv):
         return p, None, z, x, Bm, Cm, dt
     tp = ModelAxis(zxbcdt)
     p = _mamba2_local(p, cfg, tp)
-    z, xbc, dt = _split_zxbcdt(cfg, tp.whole_rows(zxbcdt))
-    xbc = tp.gather(conv(xbc[..., p["a0"]:p["a1"]], p), xbc.ndim - 1, di + 2 * N)
+    z, xbc, dt = _split_zxbcdt(cfg, tp.whole_rows(zxbcdt, partial_grad=True))
+    xbc = tp.gather(conv(xbc[..., p["a0"]:p["a1"]], p), xbc.ndim - 1, di + 2 * N, partial_grad=True)
     x, Bm, Cm = torch.tensor_split(xbc, [di, di + N], dim=-1)
     c0, c1 = p["h0"] * cfg.ssm_head_dim, p["h1"] * cfg.ssm_head_dim
     return p, tp, z[..., c0:c1], x[..., c0:c1], Bm, Cm, dt[..., p["h0"]:p["h1"]]

@@ -1,6 +1,7 @@
 """AdamW + schedules, written by hand over the parameter tree.
 
-States mirror the parameter tree; m and v ride in f32 beside bf16
+States mirror the parameter tree, laid out as the parameters are (on a
+mesh, DTensors sharded alike: ``opt_state_shardings``); m and v ride in f32 beside bf16
 parameters, and the f32 master copy lives in the optimizer state (standard
 mixed precision). The update follows the reference's order of operations,
 ``master - lr * (mhat / (sqrt(vhat) + eps) + wd * master)``, then casts the
@@ -37,14 +38,15 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
 
 def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
     """The inverse of :func:`tree_leaves` over the structure of ``like``."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return build(like)
+def _unflatten(node: Any, it) -> Any:
+    # not a closure over itself: that cycle would hold ``leaves`` (a step's
+    # gradients or new weights) until the cyclic collector runs
+    if isinstance(node, dict):
+        return {k: _unflatten(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
@@ -58,15 +60,16 @@ def adamw_init(params) -> AdamWState:
     with torch.no_grad():
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=device),
-            m=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params),
-            v=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params),
+            m=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
+            v=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
             master=tree_map(lambda p: p.detach().float().clone(), params),
         )
 
 
 def clip_by_global_norm(grads, max_norm: float):
     """-> (f32 grads scaled to a global norm of at most ``max_norm``, the
-    global norm before clipping). No host sync."""
+    global norm before clipping). No host sync. On DTensors the squares'
+    sums are reduced over every mesh axis that shards a gradient."""
     leaves = tree_leaves(grads)
     total = sum(torch.sum(torch.square(g.float())) for g in leaves)
     gnorm = torch.sqrt(total)

@@ -15,14 +15,23 @@ step writes the new weights into them in place. Knobs:
   * global-norm clipping, then AdamW with an f32 master copy.
 
 A step never syncs the host with the device: every metric is a tensor.
+
+On a mesh (a model placed by ``launch.shardings.place_model``, its state
+laid out by ``opt_state_shardings``) the step runs on DTensors: each
+gradient is brought to its parameter's layout (an FSDP leaf's is
+reduce-scattered, a replicated leaf's all-reduced), the update is pointwise
+over identically sharded trees, microbatches split each rank's own rows,
+and the metrics come out as plain tensors equal on every rank.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.distributed.compression import CompressionState, int8_compress, int8_decompress
+from repro_torch.launch.act_sharding import contiguous_stride
 from repro_torch.models.model import Model
 from repro_torch.models.spec import tree_init
 from repro_torch.training.optimizer import (
@@ -55,18 +64,40 @@ def train_state_init(model: Model, generator: Optional[torch.Generator] = None,
             p.data = new
     comp = None
     if compression:
-        comp = tree_map(lambda p: CompressionState.init(p.shape, device=p.device), params)
+        comp = tree_map(lambda p: CompressionState(torch.zeros_like(p, dtype=torch.float32)), params)
     return TrainState(params, adamw_init(params), comp)
 
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
+    """``n`` microbatches of consecutive rows; a DTensor batch is split on
+    each rank's own rows (its batch stays sharded, no collective)."""
     def split(x):
+        if isinstance(x, DTensor):
+            local = x.to_local()
+            shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+            return [DTensor.from_local(part, x.device_mesh, x.placements, run_check=False, shape=shape,
+                                       stride=contiguous_stride(shape)) for part in split(local)]
         B = x.shape[0]
         assert B % n == 0, (B, n)
         return x.reshape((n, B // n) + tuple(x.shape[1:]))
 
-    parts = {k: split(torch.as_tensor(v)) for k, v in batch.items()}
+    parts = {k: split(v if isinstance(v, DTensor) else torch.as_tensor(v)) for k, v in batch.items()}
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient in its parameter's layout (the reduce-scatter or the
+    all-reduce of a DTensor gradient that is pending a sum)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor: a DTensor's value, replicated."""
+    if isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim).to_local()
+    return t
 
 
 def make_train_step(
@@ -86,17 +117,20 @@ def make_train_step(
             p.grad = None
         loss, _ = model.loss(mb)
         loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+        grads = [torch.zeros_like(p) if p.grad is None else _as_param(p.grad, p) for p in leaves]
         for p in leaves:
             p.grad = None
         return loss.detach(), tree_unflatten(params, grads)
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
+        with model._placed():
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Dict[str, Any]):
         if microbatches == 1:
             loss, grads = grads_of(state.params, batch)
         else:
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                            state.params)
+            gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), state.params)
             lsum = torch.zeros((), dtype=torch.float32, device=model.device)
             for mb in _split_microbatches(batch, microbatches):
                 l, g = grads_of(state.params, mb)
@@ -120,7 +154,7 @@ def make_train_step(
         lr = lr_schedule(state.opt.step)
         params, opt = adamw_update(grads, state.opt, lr, weight_decay=weight_decay)
         _write_params(state.params, params)
-        out_metrics = {"loss": loss, "gnorm": gnorm, "lr": lr, "step": opt.step}
+        out_metrics = {"loss": _plain(loss), "gnorm": _plain(gnorm), "lr": lr, "step": opt.step}
         return TrainState(state.params, opt, comp_state), out_metrics
 
     return train_step
@@ -130,9 +164,12 @@ def make_train_step(
 def _write_params(params, new) -> None:
     """New weights into the model's parameters, in place; a parameter whose
     dtype changes (an f32-specified leaf after its first update) takes the
-    new tensor's storage."""
+    new tensor's storage (a DTensor's by a swap: ``.data`` of a DTensor
+    would change its dtype and keep its old local tensor)."""
     for p, n in zip(tree_leaves(params), tree_leaves(new)):
         if p.dtype == n.dtype:
             p.copy_(n)
+        elif isinstance(p, DTensor):
+            torch.utils.swap_tensors(p, torch.nn.Parameter(n, requires_grad=p.requires_grad))
         else:
             p.data = n

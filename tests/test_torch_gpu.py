@@ -923,3 +923,90 @@ def test_lm_on_a_mesh_of_the_cards_equals_unsharded(mesh_world, family):
     if "tokens" in out:
         assert out["decode_err"] <= 1e-4 and out["tokens"] == out["ref_tokens"]
         assert out["gathered_params"] == []
+
+
+# ------------------------------------------------ sharded training, dry-run
+# the sharded train step on (data 1, model every card), FSDP on, against the
+# same weights unsharded on the card (tests/torch_sharded_train.py); and
+# chip_smoke's (o1) at a reduced size: the dry-run's traced peak of a train
+# step (meta tensors on a cuda mesh) against the same step on the card
+SHARDED_TRAIN = {"dense": "qwen2-0.5b", "moe": "olmoe-1b-7b", "ssm": "falcon-mamba-7b", "hybrid": "zamba2-2.7b"}
+
+
+@pytest.fixture(scope="module")
+def train_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch_sharded_train import run_world
+
+    n = torch.cuda.device_count()
+    cases = {fam: {"kind": "train", "arch": arch, "mesh": (1, n)} for fam, arch in SHARDED_TRAIN.items()}
+    return run_world(cases, n, tmp_path_factory.mktemp("train"), backend="nccl")
+
+
+@pytest.mark.parametrize("family", list(SHARDED_TRAIN))
+def test_sharded_train_step_on_the_cards_equals_one_card(train_world, family):
+    out = train_world[0][family]
+    assert "error" not in out, out.get("error")
+    assert out["laid_out"]
+    for got, want in zip(out["metrics"], out["ref_metrics"]):
+        for key in ("loss", "gnorm"):
+            assert abs(got[key] - want[key]) <= 1e-4 * max(1.0, abs(want[key])), (key, got, want)
+    lr_sum = out["lr_sum"]
+    for path, got in out["master"].items():
+        want = out["ref_master"][path]
+        err = np.abs(got - want)
+        assert (err > 1e-4 + 1e-4 * np.abs(want)).sum() <= max(1, want.size // 10000), path
+        assert (err <= 2 * lr_sum + 1e-4).all(), path
+
+
+_DRYRUN_PEAK = """
+import json, sys
+import torch
+from repro_torch.config import ShapeConfig, get_arch
+from repro_torch.launch import dryrun, shardings as sh
+from repro_torch.launch.act_sharding import activation_sharding
+from repro_torch.launch.hlo_analysis import OpTrace
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import build_model
+from repro_torch.training import cosine_schedule, make_train_step, train_state_init
+dryrun.start_world(1)
+cfg = get_arch("qwen2-0.5b").reduced()
+shape = ShapeConfig("train", 512, 8, "train")
+mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+traced = dryrun.trace_cell(cfg, shape, mesh)
+model = build_model(cfg, "cuda:0", generator=torch.Generator().manual_seed(0))
+model = sh.place_model(model, sh.param_shardings(model, mesh))
+state = train_state_init(model)
+step = make_train_step(model, cosine_schedule(3e-4, 100, 10000))
+batch = {k: model._input(torch.zeros(v.shape, dtype=v.dtype)) for k, v in model.input_specs(shape).items()}
+with activation_sharding(sh.activation_rules(mesh, shape, cfg)):
+    state, _ = step(state, batch)  # warm-up: cuBLAS workspace, allocator
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trace = OpTrace("cuda")
+    with trace:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+print(json.dumps({"traced": traced["temp_size_in_bytes"], "op_trace": trace.peak,
+                  "measured": torch.cuda.max_memory_allocated() - base}))
+"""
+
+
+def test_dry_run_peak_of_a_train_step_on_the_card(cuda):
+    """The traced temporaries of a reduced qwen2 train step (B 8 x S 512)
+    equal ``OpTrace``'s over the same step on the card, and are within 10 %
+    of the card's ``max_memory_allocated`` over that step, less what was
+    allocated before it (its arguments)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", _DRYRUN_PEAK], capture_output=True, text=True, check=True,
+                         env={**__import__("os").environ, "PYTHONPATH": str(root / "src")})
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["traced"] == got["op_trace"] > 0
+    assert abs(got["traced"] / got["measured"] - 1) <= 0.10, got
