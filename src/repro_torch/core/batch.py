@@ -459,18 +459,21 @@ class BatchedDeidExecutor:
         chunk, H, W = st.idxs, st.H, st.W
         clk = getattr(self.tracer, "clock", None)
 
-        if st.kind == "done":
-            for i in chunk:
-                out[i] = BatchOutput(pixels=items[i][0])
-            return
-
-        if st.kind == "scrub_only":
-            scrubbed = st.scrubbed.cpu().numpy()  # blocks on the device here
-            self._release_staging(st)
-            for j, i in enumerate(chunk):
-                pixels = items[i][0]
-                pixels[...] = scrubbed[j]
-                out[i] = BatchOutput(pixels=pixels)
+        if st.kind in ("done", "scrub_only"):
+            # the scrub-only collect: the copy back into pageable memory and
+            # into each dataset (wait_s = until the copy back has returned)
+            with self.tracer.stage("kernel.collect", batch=len(chunk), path=st.kind) as sp:
+                t0 = clk.now() if sp.span is not None else None
+                if st.kind == "scrub_only":
+                    scrubbed = st.scrubbed.cpu().numpy()  # blocks on the device here
+                    self._release_staging(st)
+                if t0 is not None:
+                    sp.set(wait_s=round(clk.now() - t0, 9))
+                for j, i in enumerate(chunk):
+                    pixels = items[i][0]
+                    if st.kind == "scrub_only":
+                        pixels[...] = scrubbed[j]
+                    out[i] = BatchOutput(pixels=pixels)
             return
 
         # recompress paths: the host Golomb-Rice tail — its own span so a

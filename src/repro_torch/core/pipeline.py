@@ -220,54 +220,57 @@ class DeidPipeline:
             None
         ] * len(datasets)
         accepted: List[Tuple[int, DicomDataset]] = []
-        for i, ds in enumerate(datasets):
-            decision = self.filter(ds)
-            if decision.accepted:
-                accepted.append((i, ds))
-            else:
-                entry = ManifestEntry(
-                    sop_uid_anon="",
-                    outcome=Outcome.FILTERED,
-                    modality=str(ds.get("Modality", "")),
-                    filter_rule=decision.rule,
-                    original_bytes=ds.nbytes(),
-                    worker_id=worker_id,
-                    script_shas=self.script_shas,
-                )
-                pairs[i] = (None, entry)
+        with self.tracer.stage("pipeline.filter", instances=len(datasets)):
+            for i, ds in enumerate(datasets):
+                decision = self.filter(ds)
+                if decision.accepted:
+                    accepted.append((i, ds))
+                else:
+                    entry = ManifestEntry(
+                        sop_uid_anon="",
+                        outcome=Outcome.FILTERED,
+                        modality=str(ds.get("Modality", "")),
+                        filter_rule=decision.rule,
+                        original_bytes=ds.nbytes(),
+                        worker_id=worker_id,
+                        script_shas=self.script_shas,
+                    )
+                    pairs[i] = (None, entry)
 
-        slots = self.scrub.scrub_study([ds for _, ds in accepted], self.executor)
-        for (i, ds), (scrubbed, err) in zip(accepted, slots):
-            if err is None:
-                try:
-                    anon = self.anonymizer(scrubbed.dataset, params)
-                except ScrubError as e:  # parity with process_instance's catch scope
-                    err = e
-            if err is not None:
+        with self.tracer.stage("pipeline.scrub", instances=len(accepted)):
+            slots = self.scrub.scrub_study([ds for _, ds in accepted], self.executor)
+        with self.tracer.stage("pipeline.anonymize", instances=len(accepted)):
+            for (i, ds), (scrubbed, err) in zip(accepted, slots):
+                if err is None:
+                    try:
+                        anon = self.anonymizer(scrubbed.dataset, params)
+                    except ScrubError as e:  # parity with process_instance's catch scope
+                        err = e
+                if err is not None:
+                    entry = ManifestEntry(
+                        sop_uid_anon="",
+                        outcome=Outcome.FAILED,
+                        modality=str(ds.get("Modality", "")),
+                        original_bytes=ds.nbytes(),
+                        error=str(err),
+                        worker_id=worker_id,
+                        script_shas=self.script_shas,
+                    )
+                    pairs[i] = (None, entry)
+                    continue
                 entry = ManifestEntry(
-                    sop_uid_anon="",
-                    outcome=Outcome.FAILED,
+                    sop_uid_anon=str(anon.dataset.get("SOPInstanceUID", "")),
+                    outcome=Outcome.ANONYMIZED,
                     modality=str(ds.get("Modality", "")),
+                    scrub_rects=list(scrubbed.rects),
+                    tag_actions=anon.tag_actions,
+                    recompressed=scrubbed.recompressed,
+                    compressed_bytes=scrubbed.compressed_bytes,
                     original_bytes=ds.nbytes(),
-                    error=str(err),
                     worker_id=worker_id,
                     script_shas=self.script_shas,
                 )
-                pairs[i] = (None, entry)
-                continue
-            entry = ManifestEntry(
-                sop_uid_anon=str(anon.dataset.get("SOPInstanceUID", "")),
-                outcome=Outcome.ANONYMIZED,
-                modality=str(ds.get("Modality", "")),
-                scrub_rects=list(scrubbed.rects),
-                tag_actions=anon.tag_actions,
-                recompressed=scrubbed.recompressed,
-                compressed_bytes=scrubbed.compressed_bytes,
-                original_bytes=ds.nbytes(),
-                worker_id=worker_id,
-                script_shas=self.script_shas,
-            )
-            pairs[i] = (anon.dataset, entry)
+                pairs[i] = (anon.dataset, entry)
         for p in pairs:  # loud, not silent: a dropped slot is a lost instance
             assert p is not None
         return pairs  # type: ignore[return-value]
@@ -305,26 +308,29 @@ class DeidPipeline:
 
             ruleset = self.ruleset_fingerprint().digest
             salt = request_salt(request)
-            keys = [
-                cache_key(instance_digest(ds), ruleset, salt) for ds in study.datasets
-            ]
             slots: List[Optional[Tuple[Optional[DicomDataset], ManifestEntry]]] = [
                 None
-            ] * len(keys)
+            ] * len(study.datasets)
             cold: List[int] = []
-            for i, key in enumerate(keys):
-                blob = self.lake.get(key)
-                if blob is None:
-                    cold.append(i)
-                else:
-                    slots[i] = decode_instance_record(blob)
+            # the content-addressed keys hash every instance's pixels
+            with self.tracer.stage("pipeline.lake", op="get", instances=len(slots)):
+                keys = [
+                    cache_key(instance_digest(ds), ruleset, salt) for ds in study.datasets
+                ]
+                for i, key in enumerate(keys):
+                    blob = self.lake.get(key)
+                    if blob is None:
+                        cold.append(i)
+                    else:
+                        slots[i] = decode_instance_record(blob)
             cold_pairs = self._deid_datasets(
                 [study.datasets[i] for i in cold], request, worker_id
             )
             assert len(cold_pairs) == len(cold)
-            for i, pair in zip(cold, cold_pairs):
-                slots[i] = pair
-                self.lake.put(keys[i], encode_instance_record(*pair))
+            with self.tracer.stage("pipeline.lake", op="put", instances=len(cold)):
+                for i, pair in zip(cold, cold_pairs):
+                    slots[i] = pair
+                    self.lake.put(keys[i], encode_instance_record(*pair))
             for s in slots:  # every instance is either a hit or a cold result
                 assert s is not None
             pairs = slots  # type: ignore[assignment]

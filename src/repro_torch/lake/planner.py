@@ -375,22 +375,25 @@ class CohortPlanner:
         if blob is None:
             return None
         instance_keys = decode_study_record(blob)
-        if not all(self.result_lake.contains(k) for k in instance_keys):
-            # partially evicted: drop the stale study record and recompute
-            self.result_lake.delete(skey)
-            self.stats.demoted += 1
-            return None
-        manifest = Manifest(
-            request_id=f"{request.research_study}/{request.anon_accession}"
-        )
-        outputs: List[DicomDataset] = []
-        for k in instance_keys:
-            rec = self.result_lake.get(k)
-            if rec is None:  # raced an eviction between contains() and get()
+        # reading every instance record back out of the lake: the ticket's
+        # outputs (cohort admission's warm hits, and resolve's completions)
+        with self.tracer.stage("planner.materialize", instances=len(instance_keys)):
+            if not all(self.result_lake.contains(k) for k in instance_keys):
+                # partially evicted: drop the stale study record and recompute
+                self.result_lake.delete(skey)
                 self.stats.demoted += 1
                 return None
-            dataset, entry = decode_instance_record(rec)
-            manifest.add(entry)
-            if dataset is not None:
-                outputs.append(dataset)
-        return outputs, manifest
+            manifest = Manifest(
+                request_id=f"{request.research_study}/{request.anon_accession}"
+            )
+            outputs: List[DicomDataset] = []
+            for k in instance_keys:
+                rec = self.result_lake.get(k)
+                if rec is None:  # raced an eviction between contains() and get()
+                    self.stats.demoted += 1
+                    return None
+                dataset, entry = decode_instance_record(rec)
+                manifest.add(entry)
+                if dataset is not None:
+                    outputs.append(dataset)
+            return outputs, manifest

@@ -13,8 +13,9 @@ of ``examples/deid_at_scale.py`` prints):
 * ``retry``        — first publish → this attempt's entry (publish/redeliver)
 * ``queue``        — entry → broker lease
 * ``fetch``        — ``worker.fetch`` span (source read + decode)
-* ``deid``         — ``worker.deid`` span; under SimClock the child span is
-                     zero-width, so the modeled ``busy_s`` attribute wins
+* ``deid``         — ``worker.deid`` span: its width on a wall clock; under
+                     SimClock the span is zero-width, so the modeled
+                     ``busy_s`` attribute stands in
 * ``entropy_code`` — ``kernel.entropy_code`` spans within the trace
 * ``deliver``      — ``worker.deliver`` span
 * ``writeback``    — ``worker.writeback`` span
@@ -152,12 +153,13 @@ class CriticalPathProfiler:
         for child in children.get(proc.span_id, ()):
             for name, stage in _CHILD_STAGES:
                 if child.name == name:
-                    # under SimClock child spans are zero-width and the
-                    # modeled busy time lives in attrs; take the larger
-                    busy = child.attrs.get("busy_s", 0.0) or 0.0
-                    stage_s[stage] = stage_s.get(stage, 0.0) + max(
-                        child.duration, float(busy)
-                    )
+                    # a span with width was timed on a wall clock: its width
+                    # is the measurement. Under SimClock child spans are
+                    # zero-width and the modeled busy time lives in attrs
+                    secs = child.duration
+                    if secs <= 0:
+                        secs = float(child.attrs.get("busy_s", 0.0) or 0.0)
+                    stage_s[stage] = stage_s.get(stage, 0.0) + secs
                     if child.name == "worker.fetch":
                         modality = str(child.attrs.get("modality") or "NA")
         for ks in entropy.get(ack.trace_id, ()):

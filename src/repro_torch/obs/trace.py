@@ -14,6 +14,12 @@ Design constraints, in order:
 3. **Single-threaded context.** The whole stack is step-driven off one event
    loop, so the active-span *stack* is the context: a span opened inside
    another parents to it automatically; roots name their trace explicitly.
+4. **Stage spans time host work.** ``Tracer.stage()`` opens the spans that
+   split a study's host time by stage (lake, tag rules, scrub, collect,
+   commit, select). They are recorded only on a clock that runs by itself:
+   on a ``SimClock`` they would be zero-width and would only shift the span
+   ids of a trace that is replayed, and held span for span to the
+   reference's.
 
 Spans never carry free-text values from data; attributes cross the
 :mod:`repro_torch.obs.export` redactor before leaving the process.
@@ -124,6 +130,7 @@ HOST_PATH_LABELS = {
     ("kernel.entropy_code", "device_plan"): "host_encode",
     ("kernel.entropy_code", "device_res"): "host_encode",
     ("kernel.detect_dispatch", "textdetect"): "oracle",
+    ("kernel.collect", "scrub_only"): "done",
 }
 
 
@@ -144,12 +151,17 @@ def host_path_digest(spans) -> str:
 
 
 class Tracer:
-    """Clock-injected span recorder with a LIFO active-span stack."""
+    """Clock-injected span recorder with a LIFO active-span stack.
+
+    ``timed`` says whether :meth:`stage` records: on any clock but a
+    ``SimClock`` (this package's or a twin of the same name), whose time
+    moves only when the caller advances it."""
 
     enabled = True
 
     def __init__(self, clock) -> None:
         self.clock = clock
+        self.timed = type(clock).__name__ != "SimClock"
         self.finished: List[Span] = []
         self._stack: List[Span] = []
         self._seq = 0
@@ -181,6 +193,11 @@ class Tracer:
         """Instant (zero-duration) span, e.g. a broker publish or an ack."""
         with self.span(name, trace_id=trace_id, **attrs) as h:
             return h.span
+
+    def stage(self, name: str, **attrs):
+        """A span that times one stage of host work: :meth:`span` when the
+        tracer is ``timed``, else the shared no-op handle."""
+        return self.span(name, **attrs) if self.timed else _NOOP_SPAN
 
     def _finish(self, span: Span) -> None:
         # Tolerate out-of-order exits defensively, but the integrity checker
@@ -232,9 +249,13 @@ class NullTracer:
     """No-op tracer: the disabled mode. Never touches the clock."""
 
     enabled = False
+    timed = False
     clock = None
 
     def span(self, name: str, trace_id: Optional[str] = None, **attrs) -> _NoopSpan:
+        return _NOOP_SPAN
+
+    def stage(self, name: str, **attrs) -> _NoopSpan:
         return _NOOP_SPAN
 
     def event(self, name: str, trace_id: Optional[str] = None, **attrs) -> None:

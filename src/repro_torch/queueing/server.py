@@ -58,7 +58,11 @@ class DeidService:
         self.broker = broker
         self.lake = lake
         self.journal = journal
-        self.tracer = tracer if tracer is not None else NULL_TRACER
+        # one deployment, one tracer: without its own, the service records
+        # on the worker pipeline's
+        if tracer is None:
+            tracer = pipeline.tracer if pipeline is not None else NULL_TRACER
+        self.tracer = tracer
         # audit ledger (repro_torch.audit): handed to the planner so warm/journal
         # admissions account their deliveries; workers get it via the pool
         self.ledger = ledger
@@ -236,7 +240,8 @@ class DeidService:
         if self.catalog is None:
             raise RuntimeError("no metadata catalog attached; pass catalog= or set .catalog")
         with self.tracer.span("service.submit_query") as sp:
-            selection = self.catalog.select(query)
+            with self.tracer.stage("service.select"):
+                selection = self.catalog.select(query)
             sp.set(matched=len(selection.accessions))
             ticket = self.submit_cohort(
                 study_id,

@@ -23,7 +23,7 @@ from repro_torch.audit.records import DELIVERY, PROVENANCE, SOURCE_FETCH
 from repro_torch.core.manifest import Manifest
 from repro_torch.core.pipeline import DeidPipeline, DeidRequest
 from repro_torch.obs.metrics import StatsShim
-from repro_torch.obs.trace import NULL_TRACER, trace_id_for
+from repro_torch.obs.trace import trace_id_for
 from repro_torch.queueing.autoscaler import Autoscaler
 from repro_torch.queueing.broker import Broker, Message
 from repro_torch.queueing.journal import Journal
@@ -82,7 +82,7 @@ class DeidWorker:
     fenced: int = 0             # stale-byte fences: source mutated mid-compute
     zombie_aborts: int = 0      # lease lost mid-compute: aborted without ack
     evicted_stale: int = 0      # superseded study records dropped from the lake
-    tracer: object = None       # repro_torch.obs Tracer (None -> NULL_TRACER)
+    tracer: object = None       # repro_torch.obs Tracer (None -> the pipeline's)
     ledger: object = None       # repro_torch.audit AuditLedger (None -> NULL_LEDGER)
     # negative-control knob for the AuditCompleteness checker: suppress the
     # delivery/provenance records a completion is supposed to produce
@@ -98,7 +98,7 @@ class DeidWorker:
         propagates through the span (recorded as ``error=WorkerCrash``), so
         chaos runs leave an auditable retry chain across attempts.
         """
-        tracer = self.tracer if self.tracer is not None else NULL_TRACER
+        tracer = self.tracer if self.tracer is not None else self.pipeline.tracer
         with tracer.span(
             "worker.process",
             trace_id=trace_id_for(msg.key, msg.deliveries),
@@ -153,15 +153,16 @@ class DeidWorker:
         # the fetch itself is a PHI access (identified bytes left the source),
         # auditable even when a later fence discards this attempt's work
         ledger = self.ledger if self.ledger is not None else NULL_LEDGER
-        ledger.append(
-            SOURCE_FETCH,
-            key=key,
-            accession=accession,
-            etag=source_etag,
-            worker=self.worker_id,
-            attempt=msg.deliveries,
-            nbytes=study.nbytes(),
-        )
+        with tracer.stage("worker.commit", record=SOURCE_FETCH):
+            ledger.append(
+                SOURCE_FETCH,
+                key=key,
+                accession=accession,
+                etag=source_etag,
+                worker=self.worker_id,
+                attempt=msg.deliveries,
+                nbytes=study.nbytes(),
+            )
         slowdown = injector.slowdown(self.worker_id, msg) if injector else 1.0
         work_seconds = (study.nbytes() / self.throughput) * slowdown
         batched0 = self.pipeline.executor.stats.instances if self.pipeline.executor else 0
@@ -207,16 +208,17 @@ class DeidWorker:
             self._record_study(accession, source_etag, request, result)
             wb_span.set(lake_hits=result.cache_hits, cold=result.cache_misses)
 
-        if self.journal.record_done(key, manifest, self.worker_id, source_etag=source_etag):
-            self.processed += 1
-            span.set(ok=True)
-            if self.audit_emit_provenance:
-                self._record_provenance(
-                    ledger, key, accession, source_etag, request, result, msg, study
-                )
-        else:
-            self.deduped += 1  # lost the first-ack race to a speculative clone
-            span.set(deduped=True)
+        with tracer.stage("worker.commit", record="done"):
+            if self.journal.record_done(key, manifest, self.worker_id, source_etag=source_etag):
+                self.processed += 1
+                span.set(ok=True)
+                if self.audit_emit_provenance:
+                    self._record_provenance(
+                        ledger, key, accession, source_etag, request, result, msg, study
+                    )
+            else:
+                self.deduped += 1  # lost the first-ack race to a speculative clone
+                span.set(deduped=True)
         broker.ack(msg.msg_id)
         return work_seconds
 

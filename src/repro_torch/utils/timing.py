@@ -65,10 +65,15 @@ class SimClock:
 
 
 class WallClock:
-    """Real clock with the same interface as SimClock."""
+    """Real clock with the same interface as SimClock.
+
+    ``now()`` reads ``time.perf_counter()``: monotonic, so a span's width is
+    never negative, and the clock a device trace is tied to on the host (a
+    marker kernel stamped with it). Its zero is arbitrary: it tells
+    durations, not the time of day."""
 
     def now(self) -> float:
-        return time.time()
+        return time.perf_counter()
 
     def advance(self, dt: float) -> float:  # pragma: no cover - real sleep
         time.sleep(dt)
