@@ -105,8 +105,9 @@ Phases, in order; any failure raises and exits non-zero:
             bf16 on the card (``build_model`` from generator seed 0), 8
             requests of 64-512 prompt tokens, 32 greedy new tokens each,
             through ``ServeEngine``; prints prefill ms, decode ms a step,
-            tokens/s and peak memory beside their bounds and the card line;
-            the same architecture in f32 built on the CPU and copied to the
+            tokens/s and peak memory beside their bounds and the card line,
+            and traces the prefill and one decode step, replayed through its
+            CUDA graph and run eagerly; the same architecture in f32 built on the CPU and copied to the
             card, prefill + 4 decode steps of 2 x 64 tokens (logits within
             1e-3, greedy tokens equal); every family reduced, card against
             CPU (dense, sliding window, two MoE, SSM, hybrid served, greedy
@@ -1761,16 +1762,24 @@ def _lm_full_width_bf16() -> dict:
     assert len(run["prefill"]) == 1 and len(run["decode"]) == LM_MAX_NEW - 1
 
     # where a step's time goes: the prefill and one decode step of the same
-    # batch, traced
+    # batch, traced; the step replayed (the served path: the cache the model
+    # holds for the batch's shape, its graph captured while serving) and the
+    # same step run eagerly on a cache of its own
     toks = torch.zeros((LM_REQUESTS, P), dtype=torch.int64)
     for i, prompt in enumerate(prompts):
         toks[i, P - len(prompt):] = torch.tensor(prompt)
     held = {}
     trace_prefill = _lm_trace(lambda: held.update(zip(("logits", "cache"), model.prefill({"tokens": toks}))))
-    cache = ServeEngine._grow_cache(held["cache"], P, P + 2)
+    cache = ServeEngine._grow_cache(held["cache"], P, P + LM_MAX_NEW, model)
+    own = ServeEngine._grow_cache(held["cache"], P, P + LM_MAX_NEW)
     first = held["logits"].argmax(-1)
     model.decode_step(first, cache, P)
+    model.decode_step(first, own, P)
+    paths = (model.decode_graphs_captured, model.decode_steps_replayed, model.decode_steps_eager)
     trace_decode = _lm_trace(lambda: model.decode_step(first, cache, P + 1))
+    trace_eager = _lm_trace(lambda: model.decode_step(first, own, P + 1))
+    assert (model.decode_steps_replayed, model.decode_steps_eager) == (paths[1] + 1, paths[2] + 1), \
+        "the traced steps did not take the replayed and the eager path"
 
     # bounds: prefill 2 x params x prompt tokens (the B x P padded tokens it
     # computes) at the dense bf16 rate; a decode step reads every weight and
@@ -1792,6 +1801,9 @@ def _lm_full_width_bf16() -> dict:
         "serve_wall_s": run["wall_s"], "new_tokens": new_tokens,
         "tokens_per_s": new_tokens / run["wall_s"],
         "peak_bytes": peak, "trace_prefill": trace_prefill, "trace_decode_step": trace_decode,
+        "trace_decode_step_eager": trace_eager,
+        "decode_paths": {"captured": model.decode_graphs_captured, "replayed": model.decode_steps_replayed,
+                         "eager": model.decode_steps_eager},
         "card": card_line(),
     }
     out["prefill_pct_of_bound"] = 100 * prefill_bound_ms / out["prefill_ms"]

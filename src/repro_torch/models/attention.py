@@ -18,12 +18,15 @@ numerics are part of the reference.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 NEG_INF = -1e30
+# a decode step's position: an int, or a 0-d int64 tensor on the cache's
+# device (the CUDA-graph path's, filled before each replay)
+Position = Union[int, torch.Tensor]
 
 
 def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -148,10 +151,11 @@ def over_local_heads(fn: Callable, q: torch.Tensor, k: torch.Tensor, v: torch.Te
     return DTensor.from_local(out, mesh, q_pl, run_check=False, shape=q.shape, stride=q.stride())
 
 
-def _decode_core(qg: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+def _decode_core(qg: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: Position,
                  window: int, scale: float, reduce=lambda s: s) -> torch.Tensor:
     """(B, KV, G, hd) attention of one new token against the caches;
-    ``reduce`` sums the scores over the ranks when hd is sharded."""
+    ``reduce`` sums the scores over the ranks when hd is sharded. ``pos``
+    is an int or a 0-d int64 tensor on the caches' device (the same mask)."""
     S = k_cache.shape[1]
     # grouped: contract against the cache directly (no repeat materialization)
     s = reduce(torch.einsum("bkgd,bskd->bkgs", (qg * scale).float(), k_cache.float()))
@@ -240,7 +244,7 @@ def decode_attention(
     q: torch.Tensor,        # (B, H, hd) — single new token
     k_cache: torch.Tensor,  # (B, S, KV, hd)
     v_cache: torch.Tensor,  # (B, S, KV, hd)
-    pos: int,               # index of the new token
+    pos: Position,          # index of the new token
     *,
     window: int = 0,
 ) -> torch.Tensor:
@@ -268,14 +272,19 @@ def update_kv_cache(
     v_cache: torch.Tensor,
     k_new: torch.Tensor,    # (B, KV, hd)
     v_new: torch.Tensor,
-    pos: int,
+    pos: Position,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Writes the new token's K/V at ``pos`` in place; returns the caches.
     A cache sharded along the sequence is written only on the ranks that
-    hold position ``pos``."""
+    hold position ``pos`` (an int there). A 0-d tensor ``pos`` is read on
+    the device, where a captured step reads it."""
     if isinstance(k_cache, DTensor) and _seq_dims(k_cache):
         _write_on_owner(k_cache, k_new, pos)
         _write_on_owner(v_cache, v_new, pos)
+        return k_cache, v_cache
+    if isinstance(pos, torch.Tensor):
+        k_cache.index_copy_(1, pos.view(1), k_new.to(k_cache.dtype)[:, None])
+        v_cache.index_copy_(1, pos.view(1), v_new.to(v_cache.dtype)[:, None])
         return k_cache, v_cache
     k_cache[:, pos] = k_new.to(k_cache.dtype)
     v_cache[:, pos] = v_new.to(v_cache.dtype)

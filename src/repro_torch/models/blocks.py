@@ -12,6 +12,7 @@ import torch
 from repro_torch.config.model import ModelConfig
 from repro_torch.launch.act_sharding import add_residual, constrain, merge_dims, split_dim
 from repro_torch.models.attention import (
+    Position,
     chunked_attention,
     chunked_attention_repeat,
     decode_attention,
@@ -79,11 +80,12 @@ def attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
 
 
 def attn_decode_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, k_cache: torch.Tensor,
-                      v_cache: torch.Tensor, pos: int):
+                      v_cache: torch.Tensor, pos: Position):
     """x: (B, d_in) single token; caches (B, S, KV, hd), written at ``pos``."""
     q, k, v = _qkv(p, cfg, x[:, None])
     if cfg.rope_theta:
-        cos, sin = rope_freqs(torch.full((1,), pos, device=x.device), cfg.hd, cfg.rope_theta)
+        at = pos.view(1) if isinstance(pos, torch.Tensor) else torch.full((1,), pos, device=x.device)
+        cos, sin = rope_freqs(at, cfg.hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     k_cache, v_cache = update_kv_cache(k_cache, v_cache, k[:, 0], v[:, 0], pos)

@@ -6,6 +6,11 @@
     logits, cache = model.prefill(batch)
     logits, cache = model.decode_step(tokens, cache, pos)
 
+On one card, a dense or VLM model holds a decode cache for each batch shape
+it serves (``Model.decode_cache``); a decode step on that cache is captured
+as a CUDA graph at its first step and replayed for every later one. Every
+other decode runs the same body eagerly.
+
 Parameters are registered as stacked tensors under the dotted paths of the
 reference's parameter tree (``layers.attn.wq`` of shape (L, d, H*hd),
 ``groups.mamba.in_proj``, ``shared.attn.wq``, ...); the layer loops run in
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -43,6 +49,13 @@ from repro_torch.models.layers import chunked_ce_loss, embed_specs, embed_tokens
 from repro_torch.models.spec import SpecTree, TensorSpec, tree_abstract, tree_init, tree_items, tree_map
 
 ACT_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the most decode caches, each with its graph, a model holds; the least
+# recently used goes first
+DECODE_GRAPHS = 4
+# the fewest new positions a batch decodes for a cache (and graph) to be
+# made for it: a capture costs about what 30 eager steps lose to replays
+# (0.55 s at 32 x 2,304 on an H100, where a step replays 18 ms faster)
+DECODE_GRAPH_MIN_NEW = 32
 
 
 def _stack(specs: SpecTree, n: int, axis: str = "layers") -> SpecTree:
@@ -168,6 +181,39 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> SpecTree:
     raise ValueError(cfg.family)
 
 
+class _DecodeGraph:
+    """A decode cache held at one address, and the CUDA graph of a decode
+    step on it with its static inputs (the tokens, the position) and output
+    (the logits); captured at the cache's first step."""
+
+    def __init__(self, cache: Dict[str, torch.Tensor], batch: int, device: torch.device) -> None:
+        self.cache = cache
+        self.tokens = torch.zeros(batch, dtype=torch.long, device=device)
+        self.pos = torch.zeros((), dtype=torch.long, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None
+        # what the graph holds fixed beside the cache: see ``Model._graph_stamp``
+        self.stamp: tuple = ()
+
+    def holds(self, cache: Dict[str, torch.Tensor]) -> bool:
+        return set(cache) == {"k", "v"} and all(cache[n] is self.cache[n] for n in ("k", "v"))
+
+    def capture(self, step: Callable[[], torch.Tensor], stamp: tuple) -> None:
+        """Runs ``step`` once eagerly on a side stream of the cache's card,
+        so that lazy initialisation stays out of the graph, then records it
+        on that stream. The eager run is the real step: a replay writes the
+        same K/V at the same position again."""
+        device = self.tokens.device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph, self.stamp = torch.cuda.CUDAGraph(), stamp
+        with torch.cuda.graph(self.graph, stream=side):
+            self.logits = step()
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
                  generator: Optional[torch.Generator] = None) -> None:
@@ -180,6 +226,11 @@ class Model(nn.Module):
         self.dtype = ACT_DTYPE[cfg.dtype]
         # set by ``place_model``: the mesh the parameters are DTensors on
         self.mesh = None
+        # decode steps by path: graphs captured, steps replayed, steps run eagerly
+        self.decode_graphs_captured = 0
+        self.decode_steps_replayed = 0
+        self.decode_steps_eager = 0
+        self._decode_graphs: "OrderedDict[tuple, _DecodeGraph]" = OrderedDict()
         if device is not None and torch.device(device).type == "meta":
             _register(self, self.abstract_params())
             return
@@ -375,14 +426,88 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, tokens, cache: Dict[str, torch.Tensor], pos: int):
         """One autoregressive step. tokens: (B,) ints; pos: the new token's
-        index. Returns (logits (B, V) f32, cache), the cache updated in place."""
+        index. Returns (logits (B, V) f32, cache), the cache updated in place.
+        On a cache the model holds (``decode_cache``) the step replays a
+        CUDA graph of ``_decode_step``; the logits returned are the
+        caller's own."""
+        entry = self._held(cache)
+        if entry is not None:
+            return self._decode_replay(entry, tokens, int(pos))
+        self.decode_steps_eager += 1
         with self._placed():
             return self._decode_step(tokens, cache, pos)
 
-    def _decode_step(self, tokens, cache: Dict[str, torch.Tensor], pos: int):
+    def _graphable(self) -> bool:
+        """Whether the decode step can replay as a CUDA graph: a dense or
+        VLM model on one card, with no mesh."""
+        return self.mesh is None and self.cfg.family in ("dense", "vlm") and self.device.type == "cuda"
+
+    def decode_cache(self, batch: int, P: int, total: int) -> Optional[Dict[str, torch.Tensor]]:
+        """The ``k`` and ``v`` of ``total`` positions the model holds for a
+        batch of ``batch`` that decodes from position ``P``, where its step
+        replays as a graph (``_graphable``): the one held for that shape, or,
+        where the batch decodes at least ``DECODE_GRAPH_MIN_NEW`` positions, a
+        new one (the least recently used past ``DECODE_GRAPHS`` is dropped
+        with its graph and memory pool). None elsewhere. One batch at a time
+        decodes in it; its values are the caller's to write."""
+        if not self._graphable():
+            return None
+        key = (batch, total)
+        entry = self._decode_graphs.pop(key, None)
+        if entry is None:
+            if total - P < DECODE_GRAPH_MIN_NEW:
+                return None
+            while len(self._decode_graphs) >= DECODE_GRAPHS:
+                self._decode_graphs.popitem(last=False)
+            cache = {n: torch.empty(s.shape, dtype=s.dtype, device=self.device)
+                     for n, s in self.cache_specs(batch, total).items()}
+            entry = _DecodeGraph(cache, batch, self.device)
+        self._decode_graphs[key] = entry
+        return entry.cache
+
+    def _held(self, cache: Dict[str, torch.Tensor]) -> Optional[_DecodeGraph]:
+        """The held decode cache ``cache`` is, if any, outside a capture."""
+        k = cache.get("k")
+        if not self._graphable() or not isinstance(k, torch.Tensor) or k.dim() != 5:
+            return None
+        entry = self._decode_graphs.get((k.shape[1], k.shape[2]))
+        if entry is None or not entry.holds(cache) or torch.cuda.is_current_stream_capturing():
+            return None
+        return entry
+
+    def _graph_stamp(self) -> tuple:
+        """What a captured step holds fixed beside its cache: every
+        parameter's address (a train step may swap a parameter's storage)
+        and the matmul precision flags."""
+        mm = torch.backends.cuda.matmul
+        return ((mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction)
+                + tuple(p.data_ptr() for p in self.parameters()))
+
+    def _decode_replay(self, entry: _DecodeGraph, tokens, pos: int):
+        """``_decode_step`` on a held cache through its graph: captured at
+        the first step (or anew where the stamp moved), then replayed."""
+        with torch.cuda.device(self.device):
+            entry.tokens.copy_(torch.as_tensor(tokens))
+            entry.pos.fill_(pos)
+            stamp = self._graph_stamp()
+            if entry.graph is None or entry.stamp != stamp:
+                entry.capture(lambda: self._decode_step(entry.tokens, entry.cache, entry.pos)[0], stamp)
+                self.decode_graphs_captured += 1
+            else:
+                self.decode_steps_replayed += 1
+            entry.graph.replay()
+            return entry.logits.clone(), entry.cache
+
+    def _decode_step(self, tokens, cache: Dict[str, torch.Tensor], pos):
+        """The decode step's body. ``pos`` is an int, or (off a mesh) a 0-d
+        int tensor on the model's device, which the step reads there: the
+        same operations and values as the int."""
         cfg, params = self.cfg, self.params()
         assert cfg.has_decode, f"{cfg.name} is encoder-only"
-        pos = int(pos)
+        if isinstance(pos, torch.Tensor) and self.mesh is None and pos.device == self.device:
+            pos = pos.long()
+        else:
+            pos = int(pos)
         x = embed_tokens(params["embed"], self._input(tokens).long(), self.dtype)  # (B, d)
 
         if cfg.family in ("dense", "vlm", "moe"):

@@ -7,7 +7,9 @@ temperature sampling. Per-sequence stop tokens mask finished rows.
 
 Positions are batch-synchronized (one ``pos`` for the batch). The engine runs
 on its model's device; temperature sampling draws from a ``torch.Generator``
-on that device.
+on that device. Each prefill's cache grows into the decode cache the model
+holds for the batch's shape, where it holds one (``Model.decode_cache``:
+the model's CUDA graph of the step decodes in it).
 """
 from __future__ import annotations
 
@@ -16,7 +18,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from torch.distributed.tensor import DTensor
 
@@ -110,14 +111,25 @@ class ServeEngine:
     @staticmethod
     def _grow_cache(cache: Dict[str, torch.Tensor], P: int, total: int,
                     model: Optional[Model] = None) -> Dict[str, torch.Tensor]:
-        """Pad the attention caches ``k`` and ``v`` (..., S, KV, hd) along
-        their sequence axis from the prompt length to the decode horizon.
-        No other leaf grows: an SSM state or conv cache has no sequence axis,
-        whatever its sizes. For a model on a mesh every leaf is copied into
-        ``model.init_cache``'s, which places it by ``cache_shardings``."""
+        """Grow the attention caches ``k`` and ``v`` (..., S, KV, hd) along
+        their sequence axis from the prompt length to the decode horizon:
+        the prompt's K/V in the first ``P`` positions, zeros after, written
+        into the decode cache ``model`` holds for the shape, if any
+        (``Model.decode_cache``), else into new tensors. No other leaf grows:
+        an SSM state or conv cache has no sequence axis, whatever its sizes.
+        For a model on a mesh every leaf is copied into ``model.init_cache``'s,
+        which places it by ``cache_shardings``."""
         if model is None or model.mesh is None:
-            return {name: F.pad(t, (0, 0, 0, 0, 0, total - P)) if name in ("k", "v") else t
-                    for name, t in cache.items()}
+            grown = dict(cache)
+            if "k" not in cache:
+                return grown
+            held = model.decode_cache(cache["k"].shape[-4], P, total) if model is not None else None
+            for name in ("k", "v"):
+                t = cache[name]
+                grown[name] = held[name] if held else t.new_empty(t.shape[:-3] + (total,) + t.shape[-2:])
+                grown[name][..., :P, :, :] = t
+                grown[name][..., P:, :, :].zero_()
+            return grown
         batch = next(iter(cache.values())).shape[-4 if "k" in cache else -3]
         grown = model.init_cache(batch, total)
         for name, t in cache.items():

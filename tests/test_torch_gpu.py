@@ -746,6 +746,171 @@ def test_lm_defaults_to_the_card(cuda, monkeypatch):
         serve.main(["--requests", "1"])
 
 
+# -------------------------------------------------- the decode CUDA graph
+def _graph_prefill(model, B, P, total, seed):
+    """A prefilled cache of B prompts of P tokens grown to ``total``
+    positions (into the decode cache the model holds for the shape, if it
+    holds one), and the first greedy tokens."""
+    from repro_torch.serving import ServeEngine
+
+    tokens = np.random.default_rng(seed).integers(1, model.cfg.vocab_size, (B, P))
+    logits, cache = model.prefill({"tokens": tokens})
+    return ServeEngine._grow_cache(cache, P, total, model), logits.argmax(-1)
+
+
+def _decode_paths(model):
+    return model.decode_graphs_captured, model.decode_steps_replayed, model.decode_steps_eager
+
+
+def _reduced_on(device, arch="qwen2-0.5b"):
+    from repro_torch.config import get_arch
+    from repro_torch.models import build_model
+
+    return build_model(get_arch(arch).reduced(), device, generator=torch.Generator(device).manual_seed(0))
+
+
+@torch.no_grad()
+def test_decode_graph_replays_bitwise_as_eager_at_full_width(cuda):
+    """qwen2-0.5b at its widths in bf16, batch 4, a 300-token horizon: 20
+    steps through the graph (one capture, 19 replays) against the same steps
+    of ``_decode_step`` called directly, bit for bit in logits and caches;
+    a second cache shape captures a second graph."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.model import DECODE_GRAPH_MIN_NEW
+
+    model = build_model(get_arch("qwen2-0.5b"), cuda, generator=torch.Generator(cuda).manual_seed(0))
+    P = 256
+    cache, tok = _graph_prefill(model, 4, P, 300, seed=5)
+    eager = {name: t.clone() for name, t in cache.items()}
+    first = None
+    for step in range(20):
+        got, cache = model.decode_step(tok, cache, P + step)
+        want, eager = model._decode_step(tok, eager, P + step)
+        assert torch.equal(got, want), step
+        assert all(torch.equal(cache[n], eager[n]) for n in ("k", "v")), step
+        if first is None:
+            first, first_value = got, got.clone()
+        tok = want.argmax(-1)
+    assert torch.equal(first, first_value)  # a later step did not overwrite the logits returned
+    assert _decode_paths(model) == (1, 19, 0)
+
+    other, tok = _graph_prefill(model, 2, 64, 64 + DECODE_GRAPH_MIN_NEW, seed=6)
+    eager = {name: t.clone() for name, t in other.items()}
+    for step in range(2):
+        got, other = model.decode_step(tok, other, 64 + step)
+        want, eager = model._decode_step(tok, eager, 64 + step)
+        assert torch.equal(got, want)
+        tok = want.argmax(-1)
+    assert _decode_paths(model) == (2, 20, 0) and len(model._decode_graphs) == 2
+
+
+@torch.no_grad()
+def test_decode_graph_past_the_bound_releases_the_oldest(cuda):
+    """Past ``DECODE_GRAPHS`` shapes the least recently used cache goes with
+    its graph: a step on the released cache runs eagerly, and the shape asked
+    for again gets a new cache and a new capture."""
+    import gc
+    import weakref
+
+    from repro_torch.models.model import DECODE_GRAPH_MIN_NEW, DECODE_GRAPHS
+
+    model = _reduced_on(cuda)
+    caches = []
+    for i in range(DECODE_GRAPHS + 1):
+        caches.append(_graph_prefill(model, 2, 16, 16 + DECODE_GRAPH_MIN_NEW + i, seed=i))
+        model.decode_step(caches[-1][1], caches[-1][0], 16)
+        if i == 0:
+            oldest = weakref.ref(next(iter(model._decode_graphs.values())))
+    gc.collect()
+    assert oldest() is None and len(model._decode_graphs) == DECODE_GRAPHS
+    assert _decode_paths(model) == (DECODE_GRAPHS + 1, 0, 0)
+    cache, tok = caches[0]
+    model.decode_step(tok, cache, 17)  # no longer the model's: eager
+    again, tok = _graph_prefill(model, 2, 16, 16 + DECODE_GRAPH_MIN_NEW, seed=0)
+    assert again["k"] is not cache["k"]
+    model.decode_step(tok, again, 16)
+    assert _decode_paths(model) == (DECODE_GRAPHS + 2, 0, 1)
+
+
+@pytest.mark.parametrize("where", ["ssm on the card", "dense on the CPU", "dense, a cache of its own",
+                                   "dense, a short horizon"])
+@torch.no_grad()
+def test_decode_graph_engages_only_for_dense_on_one_card(cuda, where):
+    """The graph takes a dense model's step on a cache the model holds, on
+    the card; an SSM, the CPU, a cache grown without the model, or a batch
+    of fewer new positions than a capture repays decode eagerly and hold no
+    cache."""
+    from repro_torch.models.model import DECODE_GRAPH_MIN_NEW
+    from repro_torch.serving import ServeEngine
+
+    model = _reduced_on(torch.device("cpu") if "CPU" in where else cuda,
+                        "falcon-mamba-7b" if where.startswith("ssm") else "qwen2-0.5b")
+    total = 16 + (DECODE_GRAPH_MIN_NEW - 1 if "short" in where else DECODE_GRAPH_MIN_NEW)
+    cache, tok = _graph_prefill(model, 2, 16, total, seed=1)
+    if "of its own" in where:
+        logits, own = model.prefill({"tokens": np.random.default_rng(1).integers(1, 100, (2, 16))})
+        cache, tok = ServeEngine._grow_cache(own, 16, total), logits.argmax(-1)
+    for step in range(3):
+        logits, cache = model.decode_step(tok, cache, 16 + step)
+        tok = logits.argmax(-1)
+    held = len(model._decode_graphs)
+    assert _decode_paths(model) == (0, 0, 3) and held == ("of its own" in where)
+
+
+@torch.no_grad()
+def test_decode_graph_on_a_card_other_than_the_current(cuda):
+    """A model on the last card, the current device left at the first: the
+    graph is captured and replayed on the model's card, bit for bit as the
+    eager step there."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.models.model import DECODE_GRAPH_MIN_NEW
+
+    card = torch.device(f"cuda:{n - 1}")
+    assert torch.cuda.current_device() == 0
+    model = _reduced_on(card)
+    cache, tok = _graph_prefill(model, 2, 16, 16 + DECODE_GRAPH_MIN_NEW, seed=3)
+    eager = {name: t.clone() for name, t in cache.items()}
+    for step in range(5):
+        got, cache = model.decode_step(tok, cache, 16 + step)
+        want, eager = model._decode_step(tok, eager, 16 + step)
+        assert got.device == card and torch.equal(got, want), step
+        assert all(torch.equal(cache[n], eager[n]) for n in ("k", "v")), step
+        tok = want.argmax(-1)
+    assert _decode_paths(model) == (1, 4, 0) and torch.cuda.current_device() == 0
+
+
+@torch.no_grad()
+def test_decode_graph_serves_as_eager_engine(cuda, monkeypatch):
+    """``ServeEngine`` on the card: two batches of one shape, then one of
+    another, decode through the held caches' graphs (two captures) and give
+    the greedy tokens of the same model served eagerly (no held cache)."""
+    import copy
+
+    from repro_torch.models.model import DECODE_GRAPH_MIN_NEW
+    from repro_torch.serving import Request, ServeEngine
+
+    model = _reduced_on(cuda)
+    twin = copy.deepcopy(model)
+    monkeypatch.setattr(twin, "decode_cache", lambda *a: None)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, model.cfg.vocab_size, n).tolist() for n in (40, 17, 40, 33, 40, 8, 9, 5)]
+    max_new = [DECODE_GRAPH_MIN_NEW] * 6 + [DECODE_GRAPH_MIN_NEW + 3] * 2
+
+    def serve(m, batch):
+        eng = ServeEngine(m, max_batch=batch)
+        for i, (p, k) in enumerate(zip(prompts, max_new)):
+            eng.submit(Request(f"r{i}", p, max_new_tokens=k))
+        return [r.tokens for r in eng.run()]
+
+    assert serve(model, 3) == serve(twin, 3)
+    steps = 2 * (DECODE_GRAPH_MIN_NEW - 1) + DECODE_GRAPH_MIN_NEW + 2
+    assert _decode_paths(model) == (2, steps - 2, 0) and _decode_paths(twin) == (0, 0, steps)
+    assert sorted(model._decode_graphs) == [(2, 9 + DECODE_GRAPH_MIN_NEW + 3), (3, 40 + DECODE_GRAPH_MIN_NEW)]
+
+
 # -------------------------------------------------------------- LM training
 TRAIN_FAMILIES = ["qwen2-0.5b", "h2o-danube-1.8b", "olmoe-1b-7b", "falcon-mamba-7b", "zamba2-2.7b",
                   "llava-next-34b", "hubert-xlarge"]
@@ -923,6 +1088,19 @@ def test_lm_on_a_mesh_of_the_cards_equals_unsharded(mesh_world, family):
     if "tokens" in out:
         assert out["decode_err"] <= 1e-4 and out["tokens"] == out["ref_tokens"]
         assert out["gathered_params"] == []
+
+
+@pytest.mark.parametrize("family", [f for f in SHARDED_FAMILIES if f not in ("vlm", "encoder")])
+def test_lm_on_a_mesh_decodes_eagerly(mesh_world, family):
+    """A placed model never takes the decode graph; its unsharded twin on
+    the card takes it for its one step on a held cache in the dense and
+    sliding-window families. (The mesh case serves no VLM or encoder.)"""
+    out = mesh_world[0][family]
+    assert "error" not in out, out.get("error")
+    captured, replayed, eager = out["decode_paths"]["placed"]
+    assert captured == replayed == 0 and eager > 0
+    captured, replayed, eager = out["decode_paths"]["ref"]
+    assert captured == (family in ("dense", "sliding window")) and replayed == 0 and eager > 0
 
 
 # ------------------------------------------------ sharded training, dry-run

@@ -80,6 +80,43 @@ def test_decode_steps_equal_reference(served):
     assert t_eng.steps_executed == j_eng.steps_executed == 2 * (max(MAX_NEW) - 1)
 
 
+class _HeldCaches:
+    """``Model.decode_cache`` on the CPU, where the model holds none: one
+    ``k`` and ``v`` a (batch, horizon) shape, kept across batches and made
+    full of NaN, so that a position the growth leaves unwritten poisons the
+    attention that reads it."""
+
+    def __init__(self, model):
+        self.model, self.held = model, {}
+
+    def __call__(self, batch, P, total):
+        if (batch, total) not in self.held:
+            self.held[batch, total] = {n: torch.full(s.shape, float("nan"), dtype=s.dtype)
+                                       for n, s in self.model.cache_specs(batch, total).items()}
+        return self.held[batch, total]
+
+
+def test_held_decode_cache_serves_as_fresh_engines(served, monkeypatch):
+    """One engine serves two batches of one shape, then one of another, each
+    grown into the decode cache held for its shape: every batch gives the
+    tokens of a fresh engine on fresh caches and of the reference. On the
+    CPU the model itself holds no decode cache."""
+    arch, (j_res, _), (_, t_eng) = served
+    model = t_eng.model
+    prompts = (_prompts(model.cfg.vocab_size, PROMPT_LENS, seed=len(arch))
+               + _prompts(model.cfg.vocab_size, [9, 5, 7], seed=len(arch) + 1))
+    max_new = MAX_NEW + [4, 4, 4]
+    fresh = [r.tokens for i in range(0, len(prompts), 3)
+             for r in _serve(ServeEngine(model, max_batch=3), Request, prompts[i:i + 3], max_new[i:i + 3])]
+    assert model.decode_cache(3, 9, 9 + 4) is None and not model._decode_graphs
+    caches = _HeldCaches(model)
+    monkeypatch.setattr(model, "decode_cache", caches)
+    held = [r.tokens for r in _serve(ServeEngine(model, max_batch=3), Request, prompts, max_new)]
+    assert held == fresh
+    assert held[:len(j_res)] == [r.tokens for r in j_res]
+    assert list(caches.held) == ([(3, 64 + 12), (3, 9 + 4)] if model.cfg.family != "ssm" else [])
+
+
 def test_stop_token_and_step_equal_reference():
     jm, jp, tm = _models("qwen2-0.5b", seed=3)
     prompts = _prompts(jm.cfg.vocab_size, [9, 4, 6], seed=5)
@@ -168,6 +205,37 @@ def test_grow_cache_grows_only_k_and_v():
     grown = ServeEngine._grow_cache(cache, P, total)
     assert grown["k"].shape == grown["v"].shape == (2, 4, total, 2, 8)
     assert torch.equal(grown["k"][:, :, :P], cache["k"]) and not grown["k"][:, :, P:].any()
+    assert grown["ssm"] is cache["ssm"] and grown["conv"] is cache["conv"]
+
+
+class _Holder:
+    """A model off a mesh that holds ``held`` as its decode cache."""
+    mesh = None
+
+    def __init__(self, held):
+        self.held, self.asked = held, []
+
+    def decode_cache(self, batch, P, total):
+        self.asked.append((batch, P, total))
+        return self.held
+
+
+def test_grow_cache_into_held_tensors_zeroes_past_the_prompt():
+    """Grown into held tensors (a model's decode cache, still holding a
+    longer batch's K/V), ``k`` and ``v`` take the prompt's values in their
+    first P positions and zeros after, as growing into new tensors gives;
+    no other leaf grows."""
+    P, total = 4, 9
+    cache = {"k": torch.rand(2, 4, P, 2, 8), "v": torch.rand(2, 4, P, 2, 8),
+             "ssm": torch.ones(2, 4, P, 2, 8), "conv": torch.ones(2, 4, P, 3, 8)}
+    model = _Holder({name: torch.full((2, 4, total, 2, 8), 7.0) for name in ("k", "v")})
+    grown = ServeEngine._grow_cache(cache, P, total, model)
+    fresh = ServeEngine._grow_cache(cache, P, total)
+    assert model.asked == [(4, P, total)]
+    for name in ("k", "v"):
+        assert grown[name] is model.held[name] and fresh[name] is not model.held[name]
+        assert torch.equal(grown[name], fresh[name]) and torch.equal(grown[name][:, :, :P], cache[name])
+        assert not grown[name][:, :, P:].any()
     assert grown["ssm"] is cache["ssm"] and grown["conv"] is cache["conv"]
 
 

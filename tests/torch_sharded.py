@@ -52,6 +52,7 @@ def run_case(case: dict, device: torch.device) -> dict:
     from repro_torch.launch.shardings import (CollectiveLog, activation_rules, gather_model, param_shardings,
                                               place_model)
     from repro_torch.models import build_model
+    from repro_torch.models.model import DECODE_GRAPH_MIN_NEW
     from repro_torch.serving import ServeEngine
 
     cfg = dataclasses.replace(get_arch(case["arch"]).reduced(), **case.get("overrides", {}))
@@ -85,13 +86,17 @@ def run_case(case: dict, device: torch.device) -> dict:
             log = CollectiveLog()
             with CommDebugMode() as comm, log:
                 step_logits, _ = placed.decode_step(nxt, cache, 16)
-            ref_cache = ServeEngine._grow_cache(ref.prefill(batch)[1], 16, 18)
+            # the twin's step on the cache it holds (on the card, the graph's)
+            ref_cache = ServeEngine._grow_cache(ref.prefill(batch)[1], 16, 16 + DECODE_GRAPH_MIN_NEW, ref)
             want_step = ref.decode_step(nxt, ref_cache, 16)[0]
             out["decode_err"] = float((step_logits.full_tensor() - want_step).abs().max())
             out["comm_counts"] = {str(k): v for k, v in comm.get_comm_counts().items()}
             out["log_counts"] = log.counts()
             out["gathered_params"] = log.gathered_params(placed)
             out["cache_placements"] = {n: str(tuple(t.placements)) for n, t in cache.items()}
+            # decode steps by path (graphs captured, replayed, eager)
+            out["decode_paths"] = {name: (m.decode_graphs_captured, m.decode_steps_replayed, m.decode_steps_eager)
+                                   for name, m in (("placed", placed), ("ref", ref))}
     return out
 
 
