@@ -3,7 +3,8 @@
 One frozen dataclass covers dense / MoE / SSM / hybrid / encoder / VLM; family
 selects the block stack, the rest are dimension knobs. `reduced()` produces
 the family-preserving smoke-test config (small dims, same structure) required
-by deliverable (f).
+by deliverable (f). `LayeredConfig` adds the fields of a stack whose mixer
+kind is given layer by layer (family ``"layered"``).
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "encoder", "vlm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encoder", "vlm", "layered")
 
 
 @dataclass(frozen=True)
@@ -70,6 +71,11 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def softmax_scale(self) -> float:
+        """Attention's softmax scale: 1/sqrt(hd)."""
+        return 1.0 / (self.hd ** 0.5)
 
     @property
     def d_inner(self) -> int:
@@ -198,6 +204,88 @@ class ModelConfig:
         if self.family == "hybrid":
             changes["attn_every"] = min(self.attn_every or 2, 2)
         return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class LayeredConfig(ModelConfig):
+    """A stack whose mixer kind is given per layer (granitemoehybrid): layer
+    ``i`` runs a Mamba-2 mixer where ``layer_types[i]`` is ``"mamba"`` and
+    GQA attention where it is ``"attention"``, and every layer then runs
+    routed experts (``n_experts`` of width ``d_ff``, top ``experts_per_token``,
+    no capacity) beside one shared gated-SiLU expert of width
+    ``shared_d_ff``:
+
+        h  = x + residual_multiplier * mixer(rms_norm(x))
+        x' = h + residual_multiplier * (moe(rms_norm(h)) + shared(rms_norm(h)))
+
+    The embedding is multiplied by ``embedding_multiplier`` and the logits
+    divided by ``logits_scaling``; attention's softmax scale is
+    ``attn_scale`` (0: 1/sqrt(hd)), and ``rope_theta`` 0 gives attention no
+    positional encoding. A subclass, so that ``ModelConfig``'s own fields
+    stay the JAX package's."""
+
+    layer_types: Tuple[str, ...] = ()
+    shared_d_ff: int = 0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attn_scale: float = 0.0
+    logits_scaling: float = 1.0
+
+    KINDS = ("mamba", "attention")
+
+    def __post_init__(self):
+        assert self.family == "layered", self.family
+        assert len(self.layer_types) == self.n_layers, (len(self.layer_types), self.n_layers)
+        assert set(self.layer_types) <= set(self.KINDS), self.layer_types
+
+    @property
+    def n_mamba(self) -> int:
+        return self.layer_types.count("mamba")
+
+    @property
+    def n_attn(self) -> int:
+        return self.layer_types.count("attention")
+
+    @property
+    def softmax_scale(self) -> float:
+        return self.attn_scale or 1.0 / (self.hd ** 0.5)
+
+    def mixer_index(self, i: int) -> int:
+        """Layer ``i``'s index in the stack of its own mixer kind."""
+        return self.layer_types[:i].count(self.layer_types[i])
+
+    def _attn_params(self) -> int:
+        d, H, KV, hd = self.d_model, self.n_heads, self.n_kv_heads, self.hd
+        return d * H * hd + 2 * d * KV * hd + H * hd * d + (H * hd + 2 * KV * hd if self.qkv_bias else 0)
+
+    def _ffn_params(self, experts: int) -> int:
+        """Two norms, the router, ``experts`` routed experts and the shared one."""
+        d = self.d_model
+        return 2 * d + d * self.n_experts + experts * 3 * d * self.d_ff + 3 * d * self.shared_d_ff
+
+    def param_count(self) -> int:
+        d, V = self.d_model, self.vocab_size
+        conv_bias = self.d_inner + 2 * self.ssm_state
+        n = V * d * (1 if self.tie_embeddings else 2) + d
+        n += self.n_layers * self._ffn_params(self.n_experts)
+        n += self.n_mamba * (self._mamba2_params() + conv_bias) + self.n_attn * self._attn_params()
+        return n
+
+    def active_param_count(self) -> int:
+        return self.param_count() - self.n_layers * (self.n_experts - self.experts_per_token) * 3 \
+            * self.d_model * self.d_ff
+
+    def reduced(self) -> "LayeredConfig":
+        """Tiny widths, 8 experts with top 2, and four layers: one attention
+        layer second among three mamba ones where the stack has both kinds."""
+        kinds = [k for k in self.KINDS if k in self.layer_types]
+        types = ("mamba", "attention", "mamba", "mamba") if len(kinds) == 2 else (kinds[0],) * 4
+        return dataclasses.replace(
+            self, name=f"{self.name}-reduced", n_layers=4, layer_types=types, d_model=128,
+            n_heads=min(self.n_heads, 4), n_kv_heads=min(self.n_kv_heads, 2), head_dim=32,
+            d_ff=64, shared_d_ff=96, vocab_size=512, n_experts=min(self.n_experts, 8),
+            experts_per_token=min(self.experts_per_token, 2), ssm_state=16, ssm_head_dim=32,
+            ssm_chunk=32, attn_chunk=64, loss_chunk=64, dtype="float32")
 
 
 @dataclass(frozen=True)

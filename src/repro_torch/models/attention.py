@@ -73,6 +73,7 @@ def chunked_attention(
     window: int = 0,     # 0 = unbounded
     chunk: int = 1024,
     p_dtype: torch.dtype = torch.float32,  # bf16 for bf16 configs (cfg.attn_p_bf16)
+    scale: Optional[float] = None,         # softmax scale; None: 1/sqrt(hd)
 ) -> torch.Tensor:
     B, S, H, hd = q.shape
     KV = k.shape[2]
@@ -80,7 +81,7 @@ def chunked_attention(
     chunk = min(chunk, S)
     assert S % chunk == 0, (S, chunk)
     nq = S // chunk
-    scale = 1.0 / (hd ** 0.5)
+    scale = 1.0 / (hd ** 0.5) if scale is None else scale
 
     kf = _chunk(k, chunk)  # (n, B, C, KV, hd) — grouped: no repeat to H
     vf = _chunk(v, chunk)
@@ -247,6 +248,7 @@ def decode_attention(
     pos: Position,          # index of the new token
     *,
     window: int = 0,
+    scale: Optional[float] = None,  # softmax scale; None: 1/sqrt(hd)
 ) -> torch.Tensor:
     """On DTensors the attention runs on each rank's shards of the cache
     (``_decode_on_shards``)."""
@@ -258,7 +260,7 @@ def decode_attention(
     # pin the query to the cache's TP layout (kv- or hd-sharded, see
     # launch/shardings.cache_shardings) before the einsums
     qg = constrain(split_dim(q, 1, (KV, G)), "decode_q")
-    scale = 1.0 / (hd ** 0.5)
+    scale = 1.0 / (hd ** 0.5) if scale is None else scale
     if isinstance(k_cache, DTensor):
         out = _decode_on_shards(qg, k_cache, v_cache, pos, window, scale)
     else:
@@ -328,14 +330,14 @@ def reference_attention(q, k, v, *, causal, window=0):
 
 
 # --------------------------------------------------------------- A/B pair
-def chunked_attention_repeat(q, k, v, *, causal, window=0, chunk=1024):
+def chunked_attention_repeat(q, k, v, *, causal, window=0, chunk=1024, scale=None):
     """Repeat-based GQA baseline behind ``cfg.attn_grouped=False``: K/V
     repeated to n_heads before the einsums, f32 probabilities; equal to the
-    grouped path at f32."""
+    grouped path at f32. ``scale`` as in ``chunked_attention``."""
     B, S, H, hd = q.shape
     chunk = min(chunk, S)
     nq = S // chunk
-    scale = 1.0 / (hd ** 0.5)
+    scale = 1.0 / (hd ** 0.5) if scale is None else scale
     kf = _chunk(_repeat_kv(k, H), chunk)
     vf = _chunk(_repeat_kv(v, H), chunk)
     qf = _chunk(q, chunk)
@@ -362,13 +364,13 @@ def chunked_attention_repeat(q, k, v, *, causal, window=0, chunk=1024):
     return torch.stack(out_chunks, dim=1).reshape(B, S, H, hd)
 
 
-def decode_attention_repeat(q, k_cache, v_cache, pos, *, window=0):
+def decode_attention_repeat(q, k_cache, v_cache, pos, *, window=0, scale=None):
     """Repeat-based decode baseline behind ``cfg.attn_grouped=False``."""
     B, S, KV, hd = k_cache.shape
     H = q.shape[1]
     kf = _repeat_kv(k_cache, H)
     vf = _repeat_kv(v_cache, H)
-    scale = 1.0 / (hd ** 0.5)
+    scale = 1.0 / (hd ** 0.5) if scale is None else scale
     s = torch.einsum("bhd,bkhd->bhk", (q * scale).float(), kf.float())
     idx = torch.arange(S, device=q.device)
     keep = idx <= pos

@@ -21,7 +21,8 @@ from repro_torch.models.attention import (
     update_kv_cache,
 )
 from repro_torch.models.layers import apply_rope, matmul, mlp_apply, mlp_specs, rms_norm, rope_freqs
-from repro_torch.models.moe import moe_apply, moe_specs
+from repro_torch.models import ssm
+from repro_torch.models.moe import moe_apply, moe_apply_dropless, moe_specs, shared_expert, shared_specs
 from repro_torch.models.spec import TensorSpec
 
 
@@ -71,10 +72,11 @@ def attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
     if cfg.attn_grouped:
         p_dtype = torch.bfloat16 if (cfg.attn_p_bf16 and cfg.dtype == "bfloat16") else torch.float32
         core = lambda q, k, v: chunked_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
-                                                 chunk=chunk, p_dtype=p_dtype)
+                                                 chunk=chunk, p_dtype=p_dtype, scale=cfg.softmax_scale)
     else:  # A/B baseline
         core = lambda q, k, v: chunked_attention_repeat(q, k, v, causal=cfg.causal,
-                                                        window=cfg.sliding_window, chunk=chunk)
+                                                        window=cfg.sliding_window, chunk=chunk,
+                                                        scale=cfg.softmax_scale)
     out = over_local_heads(core, q, k, v)
     return matmul(merge_dims(out, 2), p["wo"]), (k, v)
 
@@ -90,7 +92,7 @@ def attn_decode_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, k_cache: torch
         k = apply_rope(k, cos, sin)
     k_cache, v_cache = update_kv_cache(k_cache, v_cache, k[:, 0], v[:, 0], pos)
     dec = decode_attention if cfg.attn_grouped else decode_attention_repeat
-    out = dec(q[:, 0], k_cache, v_cache, pos, window=cfg.sliding_window)
+    out = dec(q[:, 0], k_cache, v_cache, pos, window=cfg.sliding_window, scale=cfg.softmax_scale)
     return matmul(merge_dims(out, 1), p["wo"]), k_cache, v_cache
 
 
@@ -183,3 +185,53 @@ def shared_attn_decode(sp, cfg, x, e0, k_cache, v_cache, pos):
         sp["attn"], cfg, rms_norm(cat, sp["ln"], cfg.norm_eps), k_cache, v_cache, pos
     )
     return _shared_mlp(sp, cfg, add_residual(x, att), e0), k_cache, v_cache
+
+
+# -------------------------------------------- layered (granitemoehybrid)
+def layered_layer_specs(cfg) -> dict:
+    """What every layer of a ``layered`` stack holds whatever its mixer:
+    the two norms, the routed experts and the shared expert. The mixers'
+    own weights stack by kind (``mamba``, ``attn``)."""
+    return {
+        "ln1": TensorSpec((cfg.d_model,), ("embed",), init="ones"),
+        "ln2": TensorSpec((cfg.d_model,), ("embed",), init="ones"),
+        "moe": moe_specs(cfg),
+        "shared": shared_specs(cfg),
+    }
+
+
+def _scaled_add(x: torch.Tensor, y: torch.Tensor, r: float) -> torch.Tensor:
+    """``x + r * y`` in float32, rounded once to ``x``'s type."""
+    return (x.float() + r * y.float()).to(x.dtype)
+
+
+def _layered_ffn(lp, cfg, x):
+    """x + r * (experts + shared expert) of the normed ``x``; every pair
+    routed (``moe_apply_dropless``)."""
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    ff = moe_apply_dropless(lp["moe"], cfg, h).float() + shared_expert(lp["shared"], h).float()
+    return _scaled_add(x, ff, cfg.residual_multiplier)
+
+
+def layered_layer_prefill(lp, mp, kind, cfg, x, positions):
+    """One layer over a full sequence: (x, state) with the mixer's state
+    for the decode cache: (ssm state, normed input) of a mamba layer, whose
+    conv tail the model cuts; (k, v) of an attention layer."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if kind == "mamba":
+        out, h_last = ssm.mamba2_forward(mp, cfg, h)
+        state = (h_last, h)
+    else:
+        out, state = attn_apply(mp, cfg, h, positions)
+    return _layered_ffn(lp, cfg, _scaled_add(x, out, cfg.residual_multiplier)), state
+
+
+def layered_layer_decode(lp, mp, kind, cfg, x, cache_a, cache_b, pos):
+    """One layer for one new token: (x, cache_a, cache_b), the mixer's
+    cache entries (ssm state and conv buffer, or k and v) updated."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if kind == "mamba":
+        out, cache_a, cache_b = ssm.mamba2_decode(mp, cfg, h, cache_a, cache_b)
+    else:
+        out, cache_a, cache_b = attn_decode_apply(mp, cfg, h, cache_a, cache_b, pos)
+    return _layered_ffn(lp, cfg, _scaled_add(x, out, cfg.residual_multiplier)), cache_a, cache_b

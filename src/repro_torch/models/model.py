@@ -6,6 +6,10 @@
     logits, cache = model.prefill(batch)
     logits, cache = model.decode_step(tokens, cache, pos)
 
+A ``layered`` model (``LayeredConfig``) runs Mamba-2 or attention per its
+``layer_types``, each followed by dropless routed experts and a shared
+expert; its decode step runs eagerly and reads nothing back to the host.
+
 On one card, a dense or VLM model holds a decode cache for each batch shape
 it serves (``Model.decode_cache``); a decode step on that cache is captured
 as a CUDA graph at its first step and replayed for every later one. Every
@@ -44,7 +48,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from repro_torch.config.model import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.act_sharding import add_residual, captured, constrain, implicitly_replicated
-from repro_torch.models import blocks, ssm
+from repro_torch.models import blocks, moe, ssm
 from repro_torch.models.layers import chunked_ce_loss, embed_specs, embed_tokens, head_matrix, matmul, rms_norm
 from repro_torch.models.spec import SpecTree, TensorSpec, tree_abstract, tree_init, tree_items, tree_map
 
@@ -141,6 +145,12 @@ def param_specs(cfg: ModelConfig) -> SpecTree:
         layer = {"ln": TensorSpec((cfg.d_model,), ("embed",), init="ones"), "mamba": ssm.mamba2_specs(cfg)}
         specs["groups"] = _stack(_stack(layer, A, axis="sublayers"), G)
         specs["shared"] = blocks.shared_attn_specs(cfg)
+    elif cfg.family == "layered":
+        specs["layers"] = _stack(blocks.layered_layer_specs(cfg), cfg.n_layers)
+        if cfg.n_mamba:
+            specs["mamba"] = _stack(ssm.mamba2_specs(cfg), cfg.n_mamba)
+        if cfg.n_attn:
+            specs["attn"] = _stack(blocks.attn_specs(cfg), cfg.n_attn)
     else:
         raise ValueError(cfg.family)
     if cfg.family == "encoder":
@@ -178,6 +188,17 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> SpecTree:
             "k": kv(G),
             "v": kv(G),
         }
+    if cfg.family == "layered":
+        out = {}
+        if cfg.n_mamba:
+            out["ssm"] = TensorSpec((cfg.n_mamba, batch, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state),
+                                    ("layers", "act_batch", "ssm_heads", None, None), torch.float32,
+                                    init="zeros")
+            out["conv"] = TensorSpec((cfg.n_mamba, batch, K - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                                     ("layers", "act_batch", None, "ssm_inner"), dt, init="zeros")
+        if cfg.n_attn:
+            out["k"], out["v"] = kv(cfg.n_attn), kv(cfg.n_attn)
+        return out
     raise ValueError(cfg.family)
 
 
@@ -216,11 +237,12 @@ class _DecodeGraph:
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None, *,
-                 generator: Optional[torch.Generator] = None) -> None:
+                 generator: Optional[torch.Generator] = None, init: bool = True) -> None:
         """Weights drawn from ``generator`` (default: seed 0 on ``device``,
-        which defaults to ``cuda:0``). On ``device="meta"`` the parameters
-        are meta tensors (no allocation), to be placed on a mesh by
-        ``launch.shardings.place_model``."""
+        which defaults to ``cuda:0``); with ``init=False`` the parameters
+        are allocated and left uninitialised, for the caller to fill. On
+        ``device="meta"`` the parameters are meta tensors (no allocation),
+        to be placed on a mesh by ``launch.shardings.place_model``."""
         super().__init__()
         self.cfg = cfg
         self.dtype = ACT_DTYPE[cfg.dtype]
@@ -231,10 +253,16 @@ class Model(nn.Module):
         self.decode_steps_replayed = 0
         self.decode_steps_eager = 0
         self._decode_graphs: "OrderedDict[tuple, _DecodeGraph]" = OrderedDict()
+        # routing counters of the MoE layers while the model serves
+        self.moe_stats = moe.MoeCounters()
         if device is not None and torch.device(device).type == "meta":
             _register(self, self.abstract_params())
             return
         dev = resolve_device(device)
+        if not init:
+            _register(self, tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device=dev),
+                                     self.param_specs()))
+            return
         if generator is None:
             generator = torch.Generator(dev).manual_seed(0)
         _register(self, tree_init(self.param_specs(), generator, dev))
@@ -274,10 +302,29 @@ class Model(nn.Module):
         return distribute_tensor(x, self.mesh, to_placements(spec, self.mesh), src_data_rank=None)
 
     def _embed(self, params, batch) -> torch.Tensor:
-        x = embed_tokens(params["embed"], self._input(batch["tokens"]).long(), self.dtype)
+        x = self._embed_tokens(params, self._input(batch["tokens"]).long())
         if self.cfg.family == "vlm":
             x = torch.cat([self._input(batch["patch_embeds"]).to(self.dtype), x], dim=1)
         return x
+
+    def _embed_tokens(self, params, tokens) -> torch.Tensor:
+        """Token embeddings; a ``layered`` stack scales them by its
+        ``embedding_multiplier`` in float32."""
+        if self.cfg.family != "layered":
+            return embed_tokens(params["embed"], tokens, self.dtype)
+        x = embed_tokens(params["embed"], tokens, torch.float32)
+        return (x * self.cfg.embedding_multiplier).to(self.dtype)
+
+    def _head(self, params, x) -> torch.Tensor:
+        """Float32 logits of the normed hidden states ``x``; a ``layered``
+        stack divides them by its ``logits_scaling``."""
+        logits = matmul(x, head_matrix(params["embed"], self.cfg)).float()
+        return logits / self.cfg.logits_scaling if self.cfg.family == "layered" else logits
+
+    def moe_counters(self) -> dict:
+        """The MoE layers' routing counters (``moe.MoeCounters``), read back
+        from the device once."""
+        return self.moe_stats.read()
 
     def _positions(self, S: int) -> torch.Tensor:
         return torch.arange(S, dtype=torch.int32, device=self.device)
@@ -305,6 +352,8 @@ class Model(nn.Module):
             head = params["head"]
         else:
             head = head_matrix(params["embed"], cfg)
+            if cfg.family == "layered":
+                head = head / cfg.logits_scaling
             # loss only over the text region (labels for patches are ignored)
             x = x[:, x.shape[1] - labels.shape[1]:]
         ce = chunked_ce_loss(x, head, labels, cfg.loss_chunk)
@@ -347,7 +396,7 @@ class Model(nn.Module):
             def body(h, lp):
                 pre = rms_norm(h, lp["ln"], cfg.norm_eps)
                 out, h_last = ssm.mamba1_forward(lp["mamba"], cfg, pre)
-                return add_residual(h, out), h_last, self._conv_tail(pre, lp) if want_cache else None
+                return add_residual(h, out), h_last, self._conv_tail(pre, lp["mamba"]) if want_cache else None
 
             layer = _remat(body, cfg.remat, self.mesh is not None)
             hs, convs = [], []
@@ -370,7 +419,7 @@ class Model(nn.Module):
                     out, h_last = ssm.mamba2_forward(lp["mamba"], cfg, pre)
                     if want_cache:
                         hs.append(h_last)
-                        convs.append(self._conv_tail(pre, lp))
+                        convs.append(self._conv_tail(pre, lp["mamba"]))
                     h = res(add_residual(h, out))
                 h, kv = blocks.shared_attn_prefill(params["shared"], cfg, h, e0, positions)
                 return res(h), hs, convs, kv
@@ -388,15 +437,34 @@ class Model(nn.Module):
                 stack2 = lambda ts: torch.stack(ts).reshape((G, A) + tuple(ts[0].shape))
                 cache = {"ssm": stack2(hs), "conv": stack2(convs),
                          "k": torch.stack(ks), "v": torch.stack(vs)}
+        elif cfg.family == "layered":
+            state = {"ssm": [], "conv": [], "k": [], "v": []}
+            mixers = {kind: _unstack(params[key]) for kind, key in (("mamba", "mamba"), ("attention", "attn"))
+                      if key in params}
+            for i, (lp, kind) in enumerate(zip(_unstack(params["layers"]), cfg.layer_types)):
+                mp = mixers[kind][cfg.mixer_index(i)]
+                layer = _remat(lambda h, lp, mp, kind=kind: blocks.layered_layer_prefill(lp, mp, kind, cfg, h,
+                                                                                         positions),
+                               cfg.remat, self.mesh is not None)
+                x, (a, b) = layer(x, lp, mp)
+                if want_cache and kind == "mamba":
+                    state["ssm"].append(a)
+                    state["conv"].append(self._conv_tail(b, mp))
+                elif want_cache:
+                    state["k"].append(a)
+                    state["v"].append(b)
+            if want_cache:
+                cache = {n: torch.stack(ts) for n, ts in state.items() if ts}
         else:
             raise ValueError(cfg.family)
         return x, aux, cache
 
-    def _conv_tail(self, pre, lp):
-        """Last K-1 conv inputs of a mamba layer, for the decode conv buffer."""
+    def _conv_tail(self, pre, mp):
+        """Last K-1 conv inputs of a mamba layer (``mp`` its parameters),
+        for the decode conv buffer."""
         cfg = self.cfg
-        proj = matmul(pre[:, -(cfg.ssm_conv - 1):], lp["mamba"]["in_proj"])
-        if cfg.family == "hybrid":
+        proj = matmul(pre[:, -(cfg.ssm_conv - 1):], mp["in_proj"])
+        if cfg.family in ("hybrid", "layered"):
             return proj[..., cfg.d_inner: 2 * cfg.d_inner + 2 * cfg.ssm_state]
         return proj[..., : cfg.d_inner]
 
@@ -406,7 +474,7 @@ class Model(nn.Module):
         """Process a prompt; returns (last-token logits, cache). The cache is
         sized to the prompt length (callers pad prompts to cache size). An
         encoder returns its (B, S, V) frame logits and no cache."""
-        with self._placed():
+        with self._placed(), moe.counting(self.moe_stats, "prefill"):
             return self._prefill(batch)
 
     def _prefill(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -420,7 +488,7 @@ class Model(nn.Module):
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         if cfg.family == "encoder":
             return matmul(x, params["head"]).float(), {}
-        return matmul(x[:, -1], head_matrix(params["embed"], cfg)).float(), cache
+        return self._head(params, x[:, -1]), cache
 
     # =============================================================== decode
     @torch.no_grad()
@@ -434,7 +502,7 @@ class Model(nn.Module):
         if entry is not None:
             return self._decode_replay(entry, tokens, int(pos))
         self.decode_steps_eager += 1
-        with self._placed():
+        with self._placed(), moe.counting(self.moe_stats, "decode"):
             return self._decode_step(tokens, cache, pos)
 
     def _graphable(self) -> bool:
@@ -508,7 +576,7 @@ class Model(nn.Module):
             pos = pos.long()
         else:
             pos = int(pos)
-        x = embed_tokens(params["embed"], self._input(tokens).long(), self.dtype)  # (B, d)
+        x = self._embed_tokens(params, self._input(tokens).long())  # (B, d)
 
         if cfg.family in ("dense", "vlm", "moe"):
             layer_fn = blocks.moe_layer_decode if cfg.family == "moe" else blocks.dense_layer_decode
@@ -533,11 +601,20 @@ class Model(nn.Module):
                     x = add_residual(x, out)
                 x, _, _ = blocks.shared_attn_decode(params["shared"], cfg, x, e0, cache["k"][g],
                                                     cache["v"][g], pos)
+        elif cfg.family == "layered":
+            for i, kind in enumerate(cfg.layer_types):
+                j, lp = cfg.mixer_index(i), _at(params["layers"], i)
+                if kind == "mamba":
+                    x, cache["ssm"][j], cache["conv"][j] = blocks.layered_layer_decode(
+                        lp, _at(params["mamba"], j), kind, cfg, x, cache["ssm"][j], cache["conv"][j], pos)
+                else:  # K/V written in place
+                    x, _, _ = blocks.layered_layer_decode(lp, _at(params["attn"], j), kind, cfg, x,
+                                                          cache["k"][j], cache["v"][j], pos)
         else:
             raise ValueError(cfg.family)
 
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-        return matmul(x, head_matrix(params["embed"], cfg)).float(), cache
+        return self._head(params, x), cache
 
     # ================================================================ cache
     def cache_specs(self, batch: int, cache_len: int) -> SpecTree:
@@ -580,5 +657,5 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None, *,
-                generator: Optional[torch.Generator] = None) -> Model:
-    return Model(cfg, device, generator=generator)
+                generator: Optional[torch.Generator] = None, init: bool = True) -> Model:
+    return Model(cfg, device, generator=generator, init=init)

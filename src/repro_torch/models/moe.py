@@ -9,10 +9,20 @@
 
 Dispatch is row-local: position-in-expert and the scatter/gather stay within
 each sequence, with per-row capacity ``S*k*cf/E``.
+
+``moe_apply_dropless`` is the inference path of the ``layered`` family, on
+one card and off a mesh: every (token, choice) pair is routed, sorted by
+expert, and the experts run as grouped GEMMs over their contiguous runs
+(``grouped_mm``: the library's ``torch._grouped_mm`` on the card in bf16,
+a plain loop over the experts otherwise); a shared gated-SiLU expert runs beside them
+(``shared_expert``). While a model serves, ``counting`` points the MoE
+layers at its ``MoeCounters``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import contextvars
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +32,70 @@ from repro_torch.config.model import ModelConfig
 from repro_torch.launch.act_sharding import ModelAxis, constrain
 from repro_torch.models.layers import einsum, matmul
 from repro_torch.models.spec import TensorSpec
+
+# the most tokens one grouped-GEMM call of the dropless path takes: a
+# prefill's layer runs in calls of this many tokens, which bounds the sorted
+# rows and expert outputs it holds (16,384 tokens x 10 pairs x d 4,096 in
+# bf16 is 1.3 GB each)
+DROPLESS_TOKENS = 16384
+
+
+class MoeCounters:
+    """Routing counters of a model's MoE layers while it serves, kept on the
+    device (no layer reads one back) and read once by ``read``:
+    ``moe_pairs_routed`` (token, choice) pairs routed; ``moe_pairs_dropped``
+    of them dropped past an expert's capacity (0 on the dropless path by
+    construction); ``moe_max_expert_share`` the largest share of one layer
+    call's pairs on one expert; by phase (``prefill``, ``decode``) on the
+    dropless path, ``expert_gemm_calls`` grouped-GEMM launches,
+    ``expert_tokens`` tokens through the layer calls and ``experts_used``
+    experts with a non-empty run, summed over the layer calls."""
+
+    def __init__(self) -> None:
+        self.pairs_routed = 0
+        self.dropped: Optional[torch.Tensor] = None
+        self.max_share: Optional[torch.Tensor] = None
+        self.gemm_calls: Dict[str, int] = {"prefill": 0, "decode": 0}
+        self.tokens: Dict[str, int] = {"prefill": 0, "decode": 0}
+        self.experts_used: Dict[str, Optional[torch.Tensor]] = {"prefill": None, "decode": None}
+
+    def routed(self, pairs: int, max_share: torch.Tensor, dropped: Optional[torch.Tensor] = None) -> None:
+        self.pairs_routed += pairs
+        share = max_share.detach().float()
+        self.max_share = share if self.max_share is None else torch.maximum(self.max_share, share)
+        if dropped is not None:
+            dropped = dropped.detach().to(torch.int64)
+            self.dropped = dropped if self.dropped is None else self.dropped + dropped
+
+    def grouped(self, phase: str, tokens: int, launches: int, used: torch.Tensor) -> None:
+        """One dropless layer call of ``phase``: its tokens, its grouped-GEMM
+        launches and the experts its pairs reached (on the device)."""
+        self.tokens[phase] += tokens
+        self.gemm_calls[phase] += launches
+        used = used.detach().to(torch.int64)
+        prev = self.experts_used[phase]
+        self.experts_used[phase] = used if prev is None else prev + used
+
+    def read(self) -> dict:
+        return {"moe_pairs_routed": self.pairs_routed,
+                "moe_pairs_dropped": 0 if self.dropped is None else int(self.dropped),
+                "moe_max_expert_share": 0.0 if self.max_share is None else float(self.max_share),
+                "expert_gemm_calls": dict(self.gemm_calls),
+                "expert_tokens": dict(self.tokens),
+                "experts_used": {k: 0 if v is None else int(v) for k, v in self.experts_used.items()}}
+
+
+_COUNTING: contextvars.ContextVar = contextvars.ContextVar("moe_counting", default=(None, ""))
+
+
+@contextlib.contextmanager
+def counting(counters: MoeCounters, phase: str):
+    """MoE layers called inside count into ``counters`` under ``phase``."""
+    token = _COUNTING.set((counters, phase))
+    try:
+        yield
+    finally:
+        _COUNTING.reset(token)
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -103,6 +177,9 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor,
 
     ex_in, slot, keep = _dispatch(cfg, x, gate_vals, expert_idx)
     ex_in = constrain(ex_in, "moe_in")
+    counters = _COUNTING.get()[0]
+    if counters is not None:
+        counters.routed(B * S * k, ce.max(), dropped=(~keep).sum())
 
     # grouped expert FFN (batched over rows; weights broadcast)
     h = F.silu(einsum("becd,edf->becf", ex_in, p["gate"])) * einsum("becd,edf->becf", ex_in, p["up"])
@@ -167,3 +244,91 @@ def moe_apply_dense_eval(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Te
     y = einsum("tef,efd->ted", h, p["down"])
     out = torch.einsum("ted,te->td", y.float(), w)
     return out.reshape(B, S, d).to(x.dtype)
+
+
+def shared_specs(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.shared_d_ff
+    return {
+        "gate": TensorSpec((d, f), ("embed", "mlp")),
+        "up": TensorSpec((d, f), ("embed", "mlp")),
+        "down": TensorSpec((f, d), ("mlp", "embed")),
+    }
+
+
+def moe_apply_dropless(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x: (..., d) -> (..., d), every (token, choice) pair routed (no
+    capacity, no drop), in calls of at most ``DROPLESS_TOKENS`` tokens. No
+    step of it reads a value back to the host."""
+    xt = x.reshape(-1, x.shape[-1])
+    parts = [_dropless_rows(p, cfg, xt[t0:t0 + DROPLESS_TOKENS])
+             for t0 in range(0, xt.shape[0], DROPLESS_TOKENS)]
+    return (parts[0] if len(parts) == 1 else torch.cat(parts)).reshape(x.shape)
+
+
+def _dropless_rows(p: dict, cfg: ModelConfig, xt: torch.Tensor) -> torch.Tensor:
+    """The routed experts over tokens ``xt`` (T, d): the pairs sorted by
+    expert (a stable sort: within an expert, in token order), each expert's
+    run through the gated-SiLU FFN as grouped GEMMs (``expert_ffn``), and
+    the outputs weighted by their gates and summed into the tokens' rows in
+    float32."""
+    T, d = xt.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    _, gates, experts = _route(p, cfg, xt)                               # (T, k)
+    flat = experts.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    offsets = torch.searchsorted(flat[order], torch.arange(E + 1, device=xt.device, dtype=flat.dtype))
+    y = expert_ffn(xt[order // k], offsets, p["gate"], p["up"], p["down"])
+    pairs = torch.empty_like(y)
+    pairs[order] = y                                                     # back to (token, choice) order
+    out = torch.bmm(gates[:, None, :], pairs.view(T, k, d).float())[:, 0]
+    counters, phase = _COUNTING.get()
+    if counters is not None:
+        counts = offsets[1:] - offsets[:-1]
+        counters.routed(T * k, counts.max().float() / (T * k))
+        counters.grouped(phase, T, 3, (counts > 0).sum())
+    return out.to(xt.dtype)
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Each expert's run of rows times its own weight:
+    ``y[offsets[e]:offsets[e + 1]] = x[offsets[e]:offsets[e + 1]] @ w[e]``,
+    for ``x`` (M, K) sorted by expert, ``w`` (E, K, N) and ``offsets``
+    (E + 1,) on ``x``'s device -> (M, N) in ``x``'s type. On a CUDA tensor
+    in bf16 the library's grouped GEMM (``library_grouped_mm``), otherwise
+    the plain version."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return library_grouped_mm(x, w, offsets)
+    return grouped_mm_ref(x, w, offsets)
+
+
+def library_grouped_mm(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """``grouped_mm`` as one launch of ``torch._grouped_mm`` (bf16 operands,
+    f32 sums, one rounding): it takes the runs' ends, read on the device,
+    so nothing is synchronised with the host."""
+    return torch._grouped_mm(x, w, offs=offsets[1:].to(torch.int32))
+
+
+def grouped_mm_ref(x: torch.Tensor, w: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``grouped_mm``: a loop over the experts (their
+    bounds read on the host), each run times its weight in float32, rounded
+    once to ``x``'s type."""
+    out = x.new_zeros((x.shape[0], w.shape[-1]))
+    bounds = offsets.tolist()
+    for e in range(w.shape[0]):
+        a, b = bounds[e], bounds[e + 1]
+        if a < b:
+            out[a:b] = (x[a:b].float() @ w[e].float()).to(out.dtype)
+    return out
+
+
+def expert_ffn(x: torch.Tensor, offsets: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+               down: torch.Tensor) -> torch.Tensor:
+    """The gated-SiLU experts over rows sorted by expert: three grouped
+    GEMMs, ``silu(x gate) * (x up)`` taken in float32 and rounded once."""
+    h = F.silu(grouped_mm(x, gate, offsets).float()) * grouped_mm(x, up, offsets).float()
+    return grouped_mm(h.to(x.dtype), down, offsets)
+
+
+def shared_expert(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The always-on gated-SiLU expert of every token."""
+    return matmul(F.silu(matmul(x, p["gate"])) * matmul(x, p["up"]), p["down"])

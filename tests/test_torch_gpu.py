@@ -1188,3 +1188,78 @@ def test_dry_run_peak_of_a_train_step_on_the_card(cuda):
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["traced"] == got["op_trace"] > 0
     assert abs(got["traced"] / got["measured"] - 1) <= 0.10, got
+
+
+# ------------------------------------------- the dropless MoE's grouped GEMM
+@pytest.mark.parametrize("counts", [[0, 5, 0, 17, 1, 0, 40, 3], [0] * 7 + [130], [1] * 72,
+                                    [200, 0, 0, 300, 0, 1, 0, 64]])
+@pytest.mark.parametrize("K,N", [(256, 192), (4096, 768), (768, 4096)])
+def test_grouped_mm_on_card_equals_plain_version(cuda, counts, K, N):
+    """The library's grouped GEMM on the card over ragged runs with empty
+    experts, at the granite layer's shapes (gate/up K 4096 -> N 768, down
+    K 768 -> N 4096) among others, with no host synchronisation. Both
+    versions sum in float32 and round once to bf16, in other orders: they
+    may land one bf16 step apart (2^-8 of the value), so rtol is two steps."""
+    from repro_torch.models.moe import grouped_mm, grouped_mm_ref
+
+    g = torch.Generator().manual_seed(len(counts) * 1000 + sum(counts) + K)
+    E, M = len(counts), sum(counts)
+    x = torch.randn(M, K, generator=g).to(torch.bfloat16)
+    w = (torch.randn(E, K, N, generator=g) * K ** -0.5).to(torch.bfloat16)
+    offsets = torch.tensor([0] + np.cumsum(counts).tolist(), dtype=torch.int64)
+    xc, wc, oc = x.to(cuda), w.to(cuda), offsets.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = grouped_mm(xc, wc, oc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = grouped_mm_ref(x, w, offsets)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2 ** -7, atol=1e-3)
+
+
+def _layered_reduced(dtype="bfloat16"):
+    """The granite-4.0-h-small cut's ``reduced()`` stack in ``dtype``."""
+    import dataclasses
+
+    from repro_torch.config.model import LayeredConfig
+
+    cut = LayeredConfig(
+        name="granite-4.0-h-small", family="layered", n_layers=20, d_model=4096, n_heads=32, n_kv_heads=8,
+        d_ff=768, vocab_size=100352, head_dim=128, rope_theta=0.0, n_experts=72, experts_per_token=10,
+        ssm_state=128, ssm_version=2, ssm_head_dim=64, ssm_chunk=256, tie_embeddings=True,
+        layer_types=tuple(["mamba"] * 5 + ["attention"] + ["mamba"] * 9 + ["attention"] + ["mamba"] * 4),
+        shared_d_ff=1536, embedding_multiplier=12.0, residual_multiplier=0.22, attn_scale=1 / 128,
+        logits_scaling=16.0)
+    return dataclasses.replace(cut.reduced(), dtype=dtype)
+
+
+def test_layered_serves_on_card_as_on_cpu_without_host_syncs(cuda):
+    """A reduced granite stack in bf16: prefill logits on the card (the
+    library's grouped GEMM) against the CPU (the plain version) within bf16's
+    rounding of a 4-layer stack (0.02 of logits whose spread is ~0.1: a few
+    bf16 steps of the hidden states carried through the head); the decode
+    steps make no host synchronisation (CUDA's sync debug mode raises on
+    one) and route every pair."""
+    from repro_torch.serving import ServeEngine
+
+    cfg = _layered_reduced()
+    cpu, card = _lm_pair(cfg, cuda)
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 64))
+    lc, cc = cpu.prefill({"tokens": tokens})
+    lg, cg = card.prefill({"tokens": tokens})
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), atol=0.02, rtol=0)
+    cache = ServeEngine._grow_cache(cg, 64, 72, card)
+    cur = lg.argmax(-1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step in range(4):
+            logits, cache = card.decode_step(cur, cache, 64 + step)
+            cur = logits.argmax(-1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = card.moe_counters()
+    assert counts["moe_pairs_dropped"] == 0
+    assert counts["moe_pairs_routed"] == cfg.n_layers * cfg.experts_per_token * 2 * (64 + 4)
+    assert counts["expert_gemm_calls"] == {"prefill": 3 * cfg.n_layers, "decode": 4 * 3 * cfg.n_layers}
