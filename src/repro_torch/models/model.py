@@ -8,12 +8,13 @@
 
 A ``layered`` model (``LayeredConfig``) runs Mamba-2 or attention per its
 ``layer_types``, each followed by dropless routed experts and a shared
-expert; its decode step runs eagerly and reads nothing back to the host.
+expert; its decode step reads nothing back to the host.
 
-On one card, a dense or VLM model holds a decode cache for each batch shape
-it serves (``Model.decode_cache``); a decode step on that cache is captured
-as a CUDA graph at its first step and replayed for every later one. Every
-other decode runs the same body eagerly.
+On one card, a dense, VLM or layered model holds a decode cache for each
+batch shape it serves (``Model.decode_cache``: every leaf of its
+``cache_specs``); a decode step on that cache is captured as a CUDA graph at
+its first step and replayed for every later one. Every other decode runs the
+same body eagerly.
 
 Parameters are registered as stacked tensors under the dotted paths of the
 reference's parameter tree (``layers.attn.wq`` of shape (L, d, H*hd),
@@ -37,7 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -215,24 +216,33 @@ class _DecodeGraph:
         self.logits: Optional[torch.Tensor] = None
         # what the graph holds fixed beside the cache: see ``Model._graph_stamp``
         self.stamp: tuple = ()
+        # the host's MoE counts of one step (``MoeCounters.host``)
+        self.counts: Counter = Counter()
 
     def holds(self, cache: Dict[str, torch.Tensor]) -> bool:
-        return set(cache) == {"k", "v"} and all(cache[n] is self.cache[n] for n in ("k", "v"))
+        return set(cache) == set(self.cache) and all(cache[n] is t for n, t in self.cache.items())
 
-    def capture(self, step: Callable[[], torch.Tensor], stamp: tuple) -> None:
+    def capture(self, step: Callable[[], torch.Tensor], stamp: tuple, counters: moe.MoeCounters) -> torch.Tensor:
         """Runs ``step`` once eagerly on a side stream of the cache's card,
         so that lazy initialisation stays out of the graph, then records it
-        on that stream. The eager run is the real step: a replay writes the
-        same K/V at the same position again."""
+        on that stream; returns the eager run's logits. The eager run is the
+        step itself: recording runs nothing, so a state leaf advances once.
+        The host counts the recording adds to ``counters`` are taken back
+        out and kept (``counts``): each replay adds them again."""
         device = self.tokens.device
+        current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
+        side.wait_stream(current)
         with torch.cuda.stream(side):
-            step()
-        torch.cuda.current_stream(device).wait_stream(side)
+            logits = step()
+        current.wait_stream(side)
+        logits.record_stream(current)
         self.graph, self.stamp = torch.cuda.CUDAGraph(), stamp
+        mark = counters.host.copy()
         with torch.cuda.graph(self.graph, stream=side):
             self.logits = step()
+        self.counts, counters.host = counters.host - mark, mark
+        return logits
 
 
 class Model(nn.Module):
@@ -506,18 +516,21 @@ class Model(nn.Module):
             return self._decode_step(tokens, cache, pos)
 
     def _graphable(self) -> bool:
-        """Whether the decode step can replay as a CUDA graph: a dense or
-        VLM model on one card, with no mesh."""
-        return self.mesh is None and self.cfg.family in ("dense", "vlm") and self.device.type == "cuda"
+        """Whether the decode step can replay as a CUDA graph: a dense, VLM
+        or layered model (a step with no host read) on one card, with no
+        mesh."""
+        return (self.mesh is None and self.cfg.family in ("dense", "vlm", "layered")
+                and self.device.type == "cuda")
 
     def decode_cache(self, batch: int, P: int, total: int) -> Optional[Dict[str, torch.Tensor]]:
-        """The ``k`` and ``v`` of ``total`` positions the model holds for a
-        batch of ``batch`` that decodes from position ``P``, where its step
-        replays as a graph (``_graphable``): the one held for that shape, or,
-        where the batch decodes at least ``DECODE_GRAPH_MIN_NEW`` positions, a
-        new one (the least recently used past ``DECODE_GRAPHS`` is dropped
-        with its graph and memory pool). None elsewhere. One batch at a time
-        decodes in it; its values are the caller's to write."""
+        """The cache (every leaf of ``cache_specs``; ``k`` and ``v`` of
+        ``total`` positions) the model holds for a batch of ``batch`` that
+        decodes from position ``P``, where its step replays as a graph
+        (``_graphable``): the one held for that shape, or, where the batch
+        decodes at least ``DECODE_GRAPH_MIN_NEW`` positions, a new one (the
+        least recently used past ``DECODE_GRAPHS`` is dropped with its graph
+        and memory pool). None elsewhere. One batch at a time decodes in it;
+        its values are the caller's to write."""
         if not self._graphable():
             return None
         key = (batch, total)
@@ -535,13 +548,9 @@ class Model(nn.Module):
 
     def _held(self, cache: Dict[str, torch.Tensor]) -> Optional[_DecodeGraph]:
         """The held decode cache ``cache`` is, if any, outside a capture."""
-        k = cache.get("k")
-        if not self._graphable() or not isinstance(k, torch.Tensor) or k.dim() != 5:
+        if not self._graphable() or torch.cuda.is_current_stream_capturing():
             return None
-        entry = self._decode_graphs.get((k.shape[1], k.shape[2]))
-        if entry is None or not entry.holds(cache) or torch.cuda.is_current_stream_capturing():
-            return None
-        return entry
+        return next((entry for entry in self._decode_graphs.values() if entry.holds(cache)), None)
 
     def _graph_stamp(self) -> tuple:
         """What a captured step holds fixed beside its cache: every
@@ -552,18 +561,23 @@ class Model(nn.Module):
                 + tuple(p.data_ptr() for p in self.parameters()))
 
     def _decode_replay(self, entry: _DecodeGraph, tokens, pos: int):
-        """``_decode_step`` on a held cache through its graph: captured at
-        the first step (or anew where the stamp moved), then replayed."""
+        """``_decode_step`` on a held cache through its graph: run and
+        captured at the first step (or anew where the stamp moved), then
+        replayed. A replay adds one step's MoE counts: the device counters
+        in place, the host's as the capture recorded them."""
         with torch.cuda.device(self.device):
             entry.tokens.copy_(torch.as_tensor(tokens))
             entry.pos.fill_(pos)
             stamp = self._graph_stamp()
             if entry.graph is None or entry.stamp != stamp:
-                entry.capture(lambda: self._decode_step(entry.tokens, entry.cache, entry.pos)[0], stamp)
+                with moe.counting(self.moe_stats, "decode"):
+                    logits = entry.capture(lambda: self._decode_step(entry.tokens, entry.cache, entry.pos)[0],
+                                           stamp, self.moe_stats)
                 self.decode_graphs_captured += 1
-            else:
-                self.decode_steps_replayed += 1
+                return logits, entry.cache
+            self.decode_steps_replayed += 1
             entry.graph.replay()
+            self.moe_stats.host.update(entry.counts)
             return entry.logits.clone(), entry.cache
 
     def _decode_step(self, tokens, cache: Dict[str, torch.Tensor], pos):

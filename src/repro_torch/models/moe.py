@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+from collections import Counter
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -38,51 +39,62 @@ from repro_torch.models.spec import TensorSpec
 # rows and expert outputs it holds (16,384 tokens x 10 pairs x d 4,096 in
 # bf16 is 1.3 GB each)
 DROPLESS_TOKENS = 16384
+# the phases ``MoeCounters`` counts the dropless path's layer calls by
+PHASES = ("prefill", "decode")
 
 
 class MoeCounters:
-    """Routing counters of a model's MoE layers while it serves, kept on the
-    device (no layer reads one back) and read once by ``read``:
-    ``moe_pairs_routed`` (token, choice) pairs routed; ``moe_pairs_dropped``
-    of them dropped past an expert's capacity (0 on the dropless path by
-    construction); ``moe_max_expert_share`` the largest share of one layer
-    call's pairs on one expert; by phase (``prefill``, ``decode``) on the
-    dropless path, ``expert_gemm_calls`` grouped-GEMM launches,
-    ``expert_tokens`` tokens through the layer calls and ``experts_used``
-    experts with a non-empty run, summed over the layer calls."""
+    """Routing counters of a model's MoE layers while it serves, read once
+    by ``read``: ``moe_pairs_routed`` (token, choice) pairs routed;
+    ``moe_pairs_dropped`` of them dropped past an expert's capacity (0 on
+    the dropless path by construction); ``moe_max_expert_share`` the
+    largest share of one layer call's pairs on one expert; by phase
+    (``prefill``, ``decode``) on the dropless path, ``expert_gemm_calls``
+    grouped-GEMM launches, ``expert_tokens`` tokens through the layer calls
+    and ``experts_used`` experts with a non-empty run, summed over the layer
+    calls. The counts a layer knows from its shapes are kept on the host
+    (``host``); the others on the device (no layer reads one back), each
+    accumulated in place into the tensor its first call made, so that a
+    decode step replayed from a CUDA graph adds to them."""
 
     def __init__(self) -> None:
-        self.pairs_routed = 0
+        # "pairs_routed"; ("gemm_calls", phase); ("tokens", phase)
+        self.host: Counter = Counter()
         self.dropped: Optional[torch.Tensor] = None
         self.max_share: Optional[torch.Tensor] = None
-        self.gemm_calls: Dict[str, int] = {"prefill": 0, "decode": 0}
-        self.tokens: Dict[str, int] = {"prefill": 0, "decode": 0}
-        self.experts_used: Dict[str, Optional[torch.Tensor]] = {"prefill": None, "decode": None}
+        self.experts_used: Dict[str, Optional[torch.Tensor]] = {ph: None for ph in PHASES}
 
     def routed(self, pairs: int, max_share: torch.Tensor, dropped: Optional[torch.Tensor] = None) -> None:
-        self.pairs_routed += pairs
+        self.host["pairs_routed"] += pairs
         share = max_share.detach().float()
-        self.max_share = share if self.max_share is None else torch.maximum(self.max_share, share)
+        if self.max_share is None:
+            self.max_share = share.clone()
+        else:
+            torch.maximum(self.max_share, share, out=self.max_share)
         if dropped is not None:
-            dropped = dropped.detach().to(torch.int64)
-            self.dropped = dropped if self.dropped is None else self.dropped + dropped
+            self.dropped = _accumulate(self.dropped, dropped)
 
     def grouped(self, phase: str, tokens: int, launches: int, used: torch.Tensor) -> None:
         """One dropless layer call of ``phase``: its tokens, its grouped-GEMM
         launches and the experts its pairs reached (on the device)."""
-        self.tokens[phase] += tokens
-        self.gemm_calls[phase] += launches
-        used = used.detach().to(torch.int64)
-        prev = self.experts_used[phase]
-        self.experts_used[phase] = used if prev is None else prev + used
+        self.host["tokens", phase] += tokens
+        self.host["gemm_calls", phase] += launches
+        self.experts_used[phase] = _accumulate(self.experts_used[phase], used)
 
     def read(self) -> dict:
-        return {"moe_pairs_routed": self.pairs_routed,
+        return {"moe_pairs_routed": self.host["pairs_routed"],
                 "moe_pairs_dropped": 0 if self.dropped is None else int(self.dropped),
                 "moe_max_expert_share": 0.0 if self.max_share is None else float(self.max_share),
-                "expert_gemm_calls": dict(self.gemm_calls),
-                "expert_tokens": dict(self.tokens),
-                "experts_used": {k: 0 if v is None else int(v) for k, v in self.experts_used.items()}}
+                "expert_gemm_calls": {ph: self.host["gemm_calls", ph] for ph in PHASES},
+                "expert_tokens": {ph: self.host["tokens", ph] for ph in PHASES},
+                "experts_used": {ph: 0 if v is None else int(v) for ph, v in self.experts_used.items()}}
+
+
+def _accumulate(total: Optional[torch.Tensor], count: torch.Tensor) -> torch.Tensor:
+    """``count`` added into ``total`` in place; a new int64 total where
+    there is none yet."""
+    count = count.detach().to(torch.int64)
+    return count.clone() if total is None else total.add_(count)
 
 
 _COUNTING: contextvars.ContextVar = contextvars.ContextVar("moe_counting", default=(None, ""))

@@ -113,22 +113,26 @@ class ServeEngine:
                     model: Optional[Model] = None) -> Dict[str, torch.Tensor]:
         """Grow the attention caches ``k`` and ``v`` (..., S, KV, hd) along
         their sequence axis from the prompt length to the decode horizon:
-        the prompt's K/V in the first ``P`` positions, zeros after, written
-        into the decode cache ``model`` holds for the shape, if any
-        (``Model.decode_cache``), else into new tensors. No other leaf grows:
-        an SSM state or conv cache has no sequence axis, whatever its sizes.
-        For a model on a mesh every leaf is copied into ``model.init_cache``'s,
-        which places it by ``cache_shardings``."""
+        the prompt's K/V in the first ``P`` positions, zeros after. No other
+        leaf grows: an SSM state or conv cache has no sequence axis, whatever
+        its sizes. Where ``model`` holds a decode cache for the shape
+        (``Model.decode_cache``) the whole cache is written into it, every
+        other leaf copied as it is; else ``k`` and ``v`` go into new tensors
+        and the other leaves pass through. For a model on a mesh every leaf
+        is copied into ``model.init_cache``'s, which places it by
+        ``cache_shardings``."""
         if model is None or model.mesh is None:
             grown = dict(cache)
             if "k" not in cache:
                 return grown
             held = model.decode_cache(cache["k"].shape[-4], P, total) if model is not None else None
-            for name in ("k", "v"):
-                t = cache[name]
-                grown[name] = held[name] if held else t.new_empty(t.shape[:-3] + (total,) + t.shape[-2:])
-                grown[name][..., :P, :, :] = t
-                grown[name][..., P:, :, :].zero_()
+            for name, t in cache.items():
+                if name in ("k", "v"):
+                    grown[name] = held[name] if held else t.new_empty(t.shape[:-3] + (total,) + t.shape[-2:])
+                    grown[name][..., :P, :, :] = t
+                    grown[name][..., P:, :, :].zero_()
+                elif held:
+                    grown[name] = held[name].copy_(t)
             return grown
         batch = next(iter(cache.values())).shape[-4 if "k" in cache else -3]
         grown = model.init_cache(batch, total)

@@ -1263,3 +1263,52 @@ def test_layered_serves_on_card_as_on_cpu_without_host_syncs(cuda):
     assert counts["moe_pairs_dropped"] == 0
     assert counts["moe_pairs_routed"] == cfg.n_layers * cfg.experts_per_token * 2 * (64 + 4)
     assert counts["expert_gemm_calls"] == {"prefill": 3 * cfg.n_layers, "decode": 4 * 3 * cfg.n_layers}
+
+
+@torch.no_grad()
+def test_layered_decode_graph_replays_bitwise_as_eager_and_counts(cuda):
+    """The reduced granite stack in bf16, batch 4, prompt 64, a horizon of
+    ``DECODE_GRAPH_MIN_NEW`` new positions: the steps on the cache the model
+    holds (``ssm``, ``conv``, ``k``, ``v``) are captured once and replayed
+    with no host synchronisation, and give the logits and caches of a twin
+    that runs the same steps eagerly on a cache of its own, bit for bit (a
+    state leaf advances once a step); the MoE counters read as the twin's."""
+    import copy
+
+    from repro_torch.models import build_model
+    from repro_torch.models.model import DECODE_GRAPH_MIN_NEW
+    from repro_torch.serving import ServeEngine
+
+    cfg = _layered_reduced()
+    model = build_model(cfg, cuda, generator=torch.Generator(cuda).manual_seed(0))
+    twin = copy.deepcopy(model)
+    P, N = 64, DECODE_GRAPH_MIN_NEW
+    tokens = np.random.default_rng(7).integers(1, cfg.vocab_size, (4, P))
+    first, cache = model.prefill({"tokens": tokens})
+    same, own = twin.prefill({"tokens": tokens})
+    assert torch.equal(first, same)
+    cache = ServeEngine._grow_cache(cache, P, P + N, model)
+    own = ServeEngine._grow_cache(own, P, P + N)
+    (entry,) = model._decode_graphs.values()
+    assert set(cache) == {"ssm", "conv", "k", "v"} and entry.holds(cache)
+    got, want, tok = [], [], first.argmax(-1)
+    try:
+        for step in range(N):
+            if step == 1:  # the replays
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            logits, cache = model.decode_step(tok, cache, P + step)
+            eager, own = twin.decode_step(tok, own, P + step)
+            got.append(logits)
+            want.append(eager)
+            tok = eager.argmax(-1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(cache[n], own[n]) for n in own)
+    assert _decode_paths(model) == (1, N - 1, 0) and _decode_paths(twin) == (0, 0, N)
+    counts = model.moe_counters()
+    assert counts == twin.moe_counters()
+    assert counts["expert_gemm_calls"]["decode"] == 3 * cfg.n_layers * N
+    assert counts["expert_tokens"]["decode"] == 4 * cfg.n_layers * N
+    assert counts["moe_pairs_routed"] == cfg.n_layers * cfg.experts_per_token * 4 * (P + N)

@@ -79,6 +79,34 @@ def test_dropless_equals_a_loop_over_experts_where_capacity_drops():
     assert c["expert_tokens"] == {"prefill": T, "decode": 0} and c["experts_used"] == {"prefill": 2, "decode": 0}
 
 
+def test_moe_counters_accumulate_in_place():
+    """Three decode calls of the dropless path under ``counting(...,
+    "decode")``: the device counters keep the tensors the first call made
+    (a step replayed from a CUDA graph adds into them) and read the sum (the
+    largest share: the maximum) of the calls counted one by one."""
+    cfg = CUT.reduced()
+    g = torch.Generator().manual_seed(3)
+    p = {k: (torch.randn(s.shape, generator=g) * 0.05).to(s.dtype) for k, s in moe.moe_specs(cfg).items()}
+    total, each = moe.MoeCounters(), []
+    for i in range(3):
+        x = torch.randn(4, cfg.d_model, generator=g)
+        one = moe.MoeCounters()
+        for c in (total, one):
+            with moe.counting(c, "decode"):
+                moe.moe_apply_dropless(p, cfg, x)
+        each.append(one.read())
+        if i == 0:
+            used, share = total.experts_used["decode"], total.max_share
+        assert total.experts_used["decode"] is used and total.max_share is share
+    got = total.read()
+    assert got["moe_pairs_routed"] == sum(r["moe_pairs_routed"] for r in each) == 3 * 4 * cfg.experts_per_token
+    assert got["moe_max_expert_share"] == max(r["moe_max_expert_share"] for r in each)
+    for key in ("expert_gemm_calls", "expert_tokens", "experts_used"):
+        assert got[key] == {"prefill": 0, "decode": sum(r[key]["decode"] for r in each)}, key
+    assert got["expert_gemm_calls"]["decode"] == 9 and got["expert_tokens"]["decode"] == 12
+    assert got["moe_pairs_dropped"] == 0
+
+
 @pytest.mark.parametrize("counts", [[0, 5, 0, 17, 1, 0, 40, 3], [0] * 7 + [130], [1] * 72, [33, 32, 1],
                                     [1] * 4 + [0] * 68])
 def test_grouped_mm_in_bf16_equals_the_plain_version(counts):

@@ -81,10 +81,11 @@ def test_decode_steps_equal_reference(served):
 
 
 class _HeldCaches:
-    """``Model.decode_cache`` on the CPU, where the model holds none: one
-    ``k`` and ``v`` a (batch, horizon) shape, kept across batches and made
-    full of NaN, so that a position the growth leaves unwritten poisons the
-    attention that reads it."""
+    """``Model.decode_cache`` on the CPU, where the model holds none: every
+    leaf of ``cache_specs`` (``k``, ``v``, an SSM state, a conv buffer) a
+    (batch, horizon) shape, kept across batches and made full of NaN, so
+    that a position or leaf the growth leaves unwritten poisons the step
+    that reads it."""
 
     def __init__(self, model):
         self.model, self.held = model, {}
@@ -115,6 +116,35 @@ def test_held_decode_cache_serves_as_fresh_engines(served, monkeypatch):
     assert held == fresh
     assert held[:len(j_res)] == [r.tokens for r in j_res]
     assert list(caches.held) == ([(3, 64 + 12), (3, 9 + 4)] if model.cfg.family != "ssm" else [])
+
+
+def test_layered_held_decode_cache_serves_as_fresh_engines(monkeypatch):
+    """The reduced granite stack (Mamba-2 and attention layers, dropless
+    experts; no reference in the JAX package): one engine serves two batches
+    of one shape, then one of another, through held decode caches, and gives
+    the tokens of fresh engines; every step decodes in a held cache, whose
+    every leaf was written (no NaN is left). On the CPU the model itself
+    holds no decode cache."""
+    from repro_torch.models.model import DECODE_GRAPH_MIN_NEW
+    from test_torch_layered import CUT
+
+    model = t_build_model(CUT.reduced(), "cpu", generator=torch.Generator().manual_seed(0))
+    prompts = _prompts(model.cfg.vocab_size, PROMPT_LENS + [9, 5, 7], seed=11)
+    max_new = MAX_NEW + [4, 4, 4]
+    fresh = [r.tokens for i in range(0, len(prompts), 3)
+             for r in _serve(ServeEngine(model, max_batch=3), Request, prompts[i:i + 3], max_new[i:i + 3])]
+    assert model.decode_cache(3, 9, 9 + DECODE_GRAPH_MIN_NEW) is None and not model._decode_graphs
+    caches = _HeldCaches(model)
+    monkeypatch.setattr(model, "decode_cache", caches)
+    seen, decode = [], model.decode_step
+    monkeypatch.setattr(model, "decode_step", lambda tok, cache, pos: seen.append(cache) or decode(tok, cache, pos))
+    held = [r.tokens for r in _serve(ServeEngine(model, max_batch=3), Request, prompts, max_new)]
+    assert held == fresh
+    assert list(caches.held) == [(3, 64 + 12), (3, 9 + 4)]
+    leaves = {id(t) for c in caches.held.values() for t in c.values()}
+    assert seen and all(set(c) == {"ssm", "conv", "k", "v"} and {id(t) for t in c.values()} <= leaves
+                        for c in seen)
+    assert not any(t.isnan().any() for c in caches.held.values() for t in c.values())
 
 
 def test_stop_token_and_step_equal_reference():
@@ -222,13 +252,15 @@ class _Holder:
 
 def test_grow_cache_into_held_tensors_zeroes_past_the_prompt():
     """Grown into held tensors (a model's decode cache, still holding a
-    longer batch's K/V), ``k`` and ``v`` take the prompt's values in their
+    longer batch's values), ``k`` and ``v`` take the prompt's values in their
     first P positions and zeros after, as growing into new tensors gives;
-    no other leaf grows."""
+    no other leaf grows: each is copied whole into its held tensor, and
+    passes through where none is held."""
     P, total = 4, 9
     cache = {"k": torch.rand(2, 4, P, 2, 8), "v": torch.rand(2, 4, P, 2, 8),
-             "ssm": torch.ones(2, 4, P, 2, 8), "conv": torch.ones(2, 4, P, 3, 8)}
-    model = _Holder({name: torch.full((2, 4, total, 2, 8), 7.0) for name in ("k", "v")})
+             "ssm": torch.rand(2, 4, P, 2, 8), "conv": torch.rand(2, 4, P, 3, 8)}
+    model = _Holder({name: torch.full((2, 4, total, 2, 8), 7.0) for name in ("k", "v")}
+                    | {name: torch.full_like(cache[name], 7.0) for name in ("ssm", "conv")})
     grown = ServeEngine._grow_cache(cache, P, total, model)
     fresh = ServeEngine._grow_cache(cache, P, total)
     assert model.asked == [(4, P, total)]
@@ -236,7 +268,9 @@ def test_grow_cache_into_held_tensors_zeroes_past_the_prompt():
         assert grown[name] is model.held[name] and fresh[name] is not model.held[name]
         assert torch.equal(grown[name], fresh[name]) and torch.equal(grown[name][:, :, :P], cache[name])
         assert not grown[name][:, :, P:].any()
-    assert grown["ssm"] is cache["ssm"] and grown["conv"] is cache["conv"]
+    for name in ("ssm", "conv"):
+        assert grown[name] is model.held[name] and torch.equal(grown[name], cache[name])
+        assert fresh[name] is cache[name]
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b"])
