@@ -1736,7 +1736,6 @@ def _lm_full_width_bf16() -> dict:
     against their bounds."""
     from repro_torch.config import get_arch
     from repro_torch.models import build_model
-    from repro_torch.serving import ServeEngine
 
     cfg = get_arch(LM_ARCH)
     t0 = time.perf_counter()
@@ -1770,8 +1769,8 @@ def _lm_full_width_bf16() -> dict:
         toks[i, P - len(prompt):] = torch.tensor(prompt)
     held = {}
     trace_prefill = _lm_trace(lambda: held.update(zip(("logits", "cache"), model.prefill({"tokens": toks}))))
-    cache = ServeEngine._grow_cache(held["cache"], P, P + LM_MAX_NEW, model)
-    own = ServeEngine._grow_cache(held["cache"], P, P + LM_MAX_NEW)
+    cache = model.grow_cache(held["cache"], P, P + LM_MAX_NEW)
+    own = {name: t.clone() for name, t in cache.items()}
     first = held["logits"].argmax(-1)
     model.decode_step(first, cache, P)
     model.decode_step(first, own, P)
@@ -1819,7 +1818,6 @@ def _lm_full_width_f32() -> dict:
 
     from repro_torch.config import get_arch
     from repro_torch.models import build_model
-    from repro_torch.serving import ServeEngine
 
     cfg = dataclasses.replace(get_arch(LM_ARCH), dtype="float32")
     cpu = build_model(cfg, "cpu", generator=torch.Generator().manual_seed(1))
@@ -1827,7 +1825,7 @@ def _lm_full_width_f32() -> dict:
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 64))
     errs, toks = [], []
     (lc, cc), (lg, cg) = cpu.prefill({"tokens": tokens}), card.prefill({"tokens": tokens})
-    cc, cg = ServeEngine._grow_cache(cc, 64, 68), ServeEngine._grow_cache(cg, 64, 68)
+    cc, cg = cpu.grow_cache(cc, 64, 68), card.grow_cache(cg, 64, 68)
     for step in range(5):
         got, want = lg.cpu().numpy(), lc.numpy()
         np.testing.assert_allclose(got, want, **LM_FULL_TOL, err_msg=f"full-width f32, step {step}")
@@ -2329,11 +2327,10 @@ def _mesh_step_comms(model, toks) -> dict:
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.launch.shardings import CollectiveLog
-    from repro_torch.serving import ServeEngine
 
     logits, cache = model.prefill({"tokens": toks})
     P = toks.shape[1]
-    cache = ServeEngine._grow_cache(cache, P, P + 1, model)
+    cache = model.grow_cache(cache, P, P + 1)
     nxt = logits.full_tensor().argmax(-1)
     log_ = CollectiveLog()
     torch.cuda.synchronize()
@@ -2350,15 +2347,13 @@ def _mesh_parity(placed, full, toks, steps: int) -> dict:
     (every rank) and on ``full`` (rank 0 only; None elsewhere), fed the
     placed model's greedy tokens: f32 logits within LM_FULL_TOL, tokens
     equal, checked on rank 0."""
-    from repro_torch.serving import ServeEngine
-
     P = toks.shape[1]
     got, cache = placed.prefill({"tokens": toks})
-    cache = ServeEngine._grow_cache(cache, P, P + steps, placed)
+    cache = placed.grow_cache(cache, P, P + steps)
     want = ref_cache = None
     if full is not None:
         want, ref_cache = full.prefill({"tokens": toks})
-        ref_cache = ServeEngine._grow_cache(ref_cache, P, P + steps)
+        ref_cache = full.grow_cache(ref_cache, P, P + steps)
     errs, toks_out = [], []
     for step in range(steps + 1):
         g = got.full_tensor().float().cpu().numpy()

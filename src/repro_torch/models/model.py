@@ -10,11 +10,12 @@ A ``layered`` model (``LayeredConfig``) runs Mamba-2 or attention per its
 ``layer_types``, each followed by dropless routed experts and a shared
 expert; its decode step reads nothing back to the host.
 
-On one card, a dense, VLM or layered model holds a decode cache for each
-batch shape it serves (``Model.decode_cache``: every leaf of its
-``cache_specs``); a decode step on that cache is captured as a CUDA graph at
-its first step and replayed for every later one. Every other decode runs the
-same body eagerly.
+``Model.grow_cache`` turns a prefill's cache into the cache the decode
+steps run on, for every family and placement, by the axes of its
+``cache_specs``. On one card, a dense, VLM or layered model holds a decode
+cache for each batch shape it serves (every leaf of its ``cache_specs``); a
+decode step on that cache is captured as a CUDA graph at its first step and
+replayed for every later one. Every other decode runs the same body eagerly.
 
 Parameters are registered as stacked tensors under the dotted paths of the
 reference's parameter tree (``layers.attn.wq`` of shape (L, d, H*hd),
@@ -38,7 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from collections import Counter, OrderedDict
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -216,19 +217,15 @@ class _DecodeGraph:
         self.logits: Optional[torch.Tensor] = None
         # what the graph holds fixed beside the cache: see ``Model._graph_stamp``
         self.stamp: tuple = ()
-        # the host's MoE counts of one step (``MoeCounters.host``)
-        self.counts: Counter = Counter()
 
     def holds(self, cache: Dict[str, torch.Tensor]) -> bool:
         return set(cache) == set(self.cache) and all(cache[n] is t for n, t in self.cache.items())
 
-    def capture(self, step: Callable[[], torch.Tensor], stamp: tuple, counters: moe.MoeCounters) -> torch.Tensor:
+    def capture(self, step: Callable[[], torch.Tensor], stamp: tuple) -> torch.Tensor:
         """Runs ``step`` once eagerly on a side stream of the cache's card,
         so that lazy initialisation stays out of the graph, then records it
         on that stream; returns the eager run's logits. The eager run is the
-        step itself: recording runs nothing, so a state leaf advances once.
-        The host counts the recording adds to ``counters`` are taken back
-        out and kept (``counts``): each replay adds them again."""
+        step itself: recording runs nothing, so a state leaf advances once."""
         device = self.tokens.device
         current = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
@@ -238,10 +235,8 @@ class _DecodeGraph:
         current.wait_stream(side)
         logits.record_stream(current)
         self.graph, self.stamp = torch.cuda.CUDAGraph(), stamp
-        mark = counters.host.copy()
         with torch.cuda.graph(self.graph, stream=side):
             self.logits = step()
-        self.counts, counters.host = counters.host - mark, mark
         return logits
 
 
@@ -505,7 +500,7 @@ class Model(nn.Module):
     def decode_step(self, tokens, cache: Dict[str, torch.Tensor], pos: int):
         """One autoregressive step. tokens: (B,) ints; pos: the new token's
         index. Returns (logits (B, V) f32, cache), the cache updated in place.
-        On a cache the model holds (``decode_cache``) the step replays a
+        On a cache the model holds (``grow_cache``) the step replays a
         CUDA graph of ``_decode_step``; the logits returned are the
         caller's own."""
         entry = self._held(cache)
@@ -522,15 +517,15 @@ class Model(nn.Module):
         return (self.mesh is None and self.cfg.family in ("dense", "vlm", "layered")
                 and self.device.type == "cuda")
 
-    def decode_cache(self, batch: int, P: int, total: int) -> Optional[Dict[str, torch.Tensor]]:
-        """The cache (every leaf of ``cache_specs``; ``k`` and ``v`` of
-        ``total`` positions) the model holds for a batch of ``batch`` that
-        decodes from position ``P``, where its step replays as a graph
-        (``_graphable``): the one held for that shape, or, where the batch
-        decodes at least ``DECODE_GRAPH_MIN_NEW`` positions, a new one (the
-        least recently used past ``DECODE_GRAPHS`` is dropped with its graph
-        and memory pool). None elsewhere. One batch at a time decodes in it;
-        its values are the caller's to write."""
+    def _held_cache(self, batch: int, P: int, total: int) -> Optional[Dict[str, torch.Tensor]]:
+        """The cache (every leaf of ``cache_specs``, of ``total`` positions)
+        the model holds for a batch of ``batch`` that decodes from position
+        ``P``, where its step replays as a graph (``_graphable``): the one
+        held for that shape, or, where the batch decodes at least
+        ``DECODE_GRAPH_MIN_NEW`` positions, a new one (the least recently
+        used past ``DECODE_GRAPHS`` is dropped with its graph and memory
+        pool). None elsewhere. One batch at a time decodes in it; its values
+        are ``grow_cache``'s to write."""
         if not self._graphable():
             return None
         key = (batch, total)
@@ -563,8 +558,8 @@ class Model(nn.Module):
     def _decode_replay(self, entry: _DecodeGraph, tokens, pos: int):
         """``_decode_step`` on a held cache through its graph: run and
         captured at the first step (or anew where the stamp moved), then
-        replayed. A replay adds one step's MoE counts: the device counters
-        in place, the host's as the capture recorded them."""
+        replayed; a replay adds one step's MoE counts into the device
+        counters by itself."""
         with torch.cuda.device(self.device):
             entry.tokens.copy_(torch.as_tensor(tokens))
             entry.pos.fill_(pos)
@@ -572,12 +567,11 @@ class Model(nn.Module):
             if entry.graph is None or entry.stamp != stamp:
                 with moe.counting(self.moe_stats, "decode"):
                     logits = entry.capture(lambda: self._decode_step(entry.tokens, entry.cache, entry.pos)[0],
-                                           stamp, self.moe_stats)
+                                           stamp)
                 self.decode_graphs_captured += 1
                 return logits, entry.cache
             self.decode_steps_replayed += 1
             entry.graph.replay()
-            self.moe_stats.host.update(entry.counts)
             return entry.logits.clone(), entry.cache
 
     def _decode_step(self, tokens, cache: Dict[str, torch.Tensor], pos):
@@ -633,6 +627,32 @@ class Model(nn.Module):
     # ================================================================ cache
     def cache_specs(self, batch: int, cache_len: int) -> SpecTree:
         return cache_specs(self.cfg, batch, cache_len)
+
+    def grow_cache(self, cache: Dict[str, torch.Tensor], P: int, total: int) -> Dict[str, torch.Tensor]:
+        """The decode cache of ``total`` positions grown from a prefill's
+        ``cache`` of ``P``: a leaf whose spec has the ``cache_seq`` axis
+        takes the prompt in its first ``P`` positions along it and zeros
+        after; every other leaf is copied whole. The batch is read along
+        ``act_batch``. The cache grown into is the one the model holds for
+        the batch's shape (``_held_cache``; it still holds an earlier batch's
+        values, so the zeros are written too), else ``init_cache``'s. An
+        encoder has no cache: ``{}``."""
+        if not cache:
+            return {}
+        axes = {name: spec.axes for name, spec in self.cache_specs(1, P).items()}
+        name, t = next(iter(cache.items()))
+        batch = t.shape[axes[name].index("act_batch")]
+        held = self._held_cache(batch, P, total)
+        grown = held if held is not None else self.init_cache(batch, total)
+        for name, t in cache.items():
+            if "cache_seq" not in axes[name]:
+                grown[name].copy_(t)
+                continue
+            seq = axes[name].index("cache_seq")
+            grown[name].narrow(seq, 0, P).copy_(t)
+            if held is not None:
+                grown[name].narrow(seq, P, total - P).zero_()
+        return grown
 
     def init_cache(self, batch: int, cache_len: int) -> Dict[str, torch.Tensor]:
         """Zeros; on a mesh, DTensors placed by ``cache_shardings``."""

@@ -22,8 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from collections import Counter
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,49 +51,46 @@ class MoeCounters:
     (``prefill``, ``decode``) on the dropless path, ``expert_gemm_calls``
     grouped-GEMM launches, ``expert_tokens`` tokens through the layer calls
     and ``experts_used`` experts with a non-empty run, summed over the layer
-    calls. The counts a layer knows from its shapes are kept on the host
-    (``host``); the others on the device (no layer reads one back), each
-    accumulated in place into the tensor its first call made, so that a
-    decode step replayed from a CUDA graph adds to them."""
+    calls. Every count lives on the device (no layer reads one back), a 0-d
+    tensor made by its first call and accumulated in place after, so that a
+    decode step replayed from a CUDA graph adds to each by itself."""
 
     def __init__(self) -> None:
-        # "pairs_routed"; ("gemm_calls", phase); ("tokens", phase)
-        self.host: Counter = Counter()
-        self.dropped: Optional[torch.Tensor] = None
+        # "pairs_routed", "dropped", (count, phase): int64 sums
+        self.totals: Dict[Any, torch.Tensor] = {}
         self.max_share: Optional[torch.Tensor] = None
-        self.experts_used: Dict[str, Optional[torch.Tensor]] = {ph: None for ph in PHASES}
+
+    def _add(self, key: Any, count, device: torch.device) -> None:
+        total = self.totals.get(key)
+        if total is None:
+            total = self.totals[key] = torch.zeros((), dtype=torch.int64, device=device)
+        total.add_(count)
 
     def routed(self, pairs: int, max_share: torch.Tensor, dropped: Optional[torch.Tensor] = None) -> None:
-        self.host["pairs_routed"] += pairs
+        self._add("pairs_routed", pairs, max_share.device)
         share = max_share.detach().float()
         if self.max_share is None:
             self.max_share = share.clone()
         else:
             torch.maximum(self.max_share, share, out=self.max_share)
         if dropped is not None:
-            self.dropped = _accumulate(self.dropped, dropped)
+            self._add("dropped", dropped, dropped.device)
 
     def grouped(self, phase: str, tokens: int, launches: int, used: torch.Tensor) -> None:
         """One dropless layer call of ``phase``: its tokens, its grouped-GEMM
         launches and the experts its pairs reached (on the device)."""
-        self.host["tokens", phase] += tokens
-        self.host["gemm_calls", phase] += launches
-        self.experts_used[phase] = _accumulate(self.experts_used[phase], used)
+        for key, count in (("tokens", tokens), ("gemm_calls", launches), ("experts_used", used)):
+            self._add((key, phase), count, used.device)
 
     def read(self) -> dict:
-        return {"moe_pairs_routed": self.host["pairs_routed"],
-                "moe_pairs_dropped": 0 if self.dropped is None else int(self.dropped),
+        n = lambda key: int(self.totals[key]) if key in self.totals else 0
+        by_phase = lambda key: {ph: n((key, ph)) for ph in PHASES}
+        return {"moe_pairs_routed": n("pairs_routed"),
+                "moe_pairs_dropped": n("dropped"),
                 "moe_max_expert_share": 0.0 if self.max_share is None else float(self.max_share),
-                "expert_gemm_calls": {ph: self.host["gemm_calls", ph] for ph in PHASES},
-                "expert_tokens": {ph: self.host["tokens", ph] for ph in PHASES},
-                "experts_used": {ph: 0 if v is None else int(v) for ph, v in self.experts_used.items()}}
-
-
-def _accumulate(total: Optional[torch.Tensor], count: torch.Tensor) -> torch.Tensor:
-    """``count`` added into ``total`` in place; a new int64 total where
-    there is none yet."""
-    count = count.detach().to(torch.int64)
-    return count.clone() if total is None else total.add_(count)
+                "expert_gemm_calls": by_phase("gemm_calls"),
+                "expert_tokens": by_phase("tokens"),
+                "experts_used": by_phase("experts_used")}
 
 
 _COUNTING: contextvars.ContextVar = contextvars.ContextVar("moe_counting", default=(None, ""))

@@ -7,9 +7,9 @@ temperature sampling. Per-sequence stop tokens mask finished rows.
 
 Positions are batch-synchronized (one ``pos`` for the batch). The engine runs
 on its model's device; temperature sampling draws from a ``torch.Generator``
-on that device. Each prefill's cache grows into the decode cache the model
-holds for the batch's shape, where it holds one (``Model.decode_cache``:
-the model's CUDA graph of the step decodes in it).
+on that device. The engine calls ``prefill`` once a batch and
+``decode_step`` once a step; between them the model grows the prefill's
+cache to the decode horizon (``Model.grow_cache``).
 """
 from __future__ import annotations
 
@@ -84,7 +84,7 @@ class ServeEngine:
 
         # prefill on prompt, then grow the cache to the full horizon
         logits, cache = self.model.prefill({"tokens": torch.from_numpy(toks)})
-        cache = self._grow_cache(cache, P, P + max_new, self.model)
+        cache = self.model.grow_cache(cache, P, P + max_new)
 
         out: List[List[int]] = [[] for _ in range(B)]
         done = np.zeros(B, bool)
@@ -109,39 +109,9 @@ class ServeEngine:
         ]
 
     @staticmethod
-    def _grow_cache(cache: Dict[str, torch.Tensor], P: int, total: int,
-                    model: Optional[Model] = None) -> Dict[str, torch.Tensor]:
-        """Grow the attention caches ``k`` and ``v`` (..., S, KV, hd) along
-        their sequence axis from the prompt length to the decode horizon:
-        the prompt's K/V in the first ``P`` positions, zeros after. No other
-        leaf grows: an SSM state or conv cache has no sequence axis, whatever
-        its sizes. Where ``model`` holds a decode cache for the shape
-        (``Model.decode_cache``) the whole cache is written into it, every
-        other leaf copied as it is; else ``k`` and ``v`` go into new tensors
-        and the other leaves pass through. For a model on a mesh every leaf
-        is copied into ``model.init_cache``'s, which places it by
-        ``cache_shardings``."""
-        if model is None or model.mesh is None:
-            grown = dict(cache)
-            if "k" not in cache:
-                return grown
-            held = model.decode_cache(cache["k"].shape[-4], P, total) if model is not None else None
-            for name, t in cache.items():
-                if name in ("k", "v"):
-                    grown[name] = held[name] if held else t.new_empty(t.shape[:-3] + (total,) + t.shape[-2:])
-                    grown[name][..., :P, :, :] = t
-                    grown[name][..., P:, :, :].zero_()
-                elif held:
-                    grown[name] = held[name].copy_(t)
-            return grown
-        batch = next(iter(cache.values())).shape[-4 if "k" in cache else -3]
-        grown = model.init_cache(batch, total)
-        for name, t in cache.items():
-            if name in ("k", "v"):
-                grown[name][..., :P, :, :] = t
-            else:
-                grown[name].copy_(t)
-        return grown
+    def _grow_cache(cache: Dict[str, torch.Tensor], P: int, total: int, model: Model) -> Dict[str, torch.Tensor]:
+        """``model.grow_cache``, under the engine's former name."""
+        return model.grow_cache(cache, P, total)
 
     @staticmethod
     def _sample(logits: torch.Tensor, reqs: List[Request], generator: torch.Generator) -> np.ndarray:

@@ -14,7 +14,6 @@ import torch
 
 from repro_torch.config import get_arch
 from repro_torch.models import build_model
-from repro_torch.serving import ServeEngine
 
 STEPS = 12
 # the reduced configs whose decode reads ``pos``: dense, the VLM's text
@@ -48,7 +47,7 @@ def _prefilled(model, horizon, seed=1):
     batch = _prompt(model.cfg, np.random.default_rng(seed))
     logits, cache = model.prefill(batch)
     P = batch["tokens"].shape[1] + (batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0)
-    return ServeEngine._grow_cache(cache, P, P + horizon), P, logits.argmax(-1)
+    return model.grow_cache(cache, P, P + horizon), P, logits.argmax(-1)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -79,4 +78,4 @@ def test_decode_off_the_card_runs_eagerly_and_counts_it(arch):
         logits, cache = model.decode_step(tok, cache, P + step)
         tok = logits.argmax(-1)
     assert (model.decode_graphs_captured, model.decode_steps_replayed, model.decode_steps_eager) == (0, 0, 3)
-    assert not model._graphable() and model.decode_cache(3, P, P + 64) is None and not model._decode_graphs
+    assert not model._graphable() and model._held_cache(3, P, P + 64) is None and not model._decode_graphs

@@ -751,11 +751,9 @@ def _graph_prefill(model, B, P, total, seed):
     """A prefilled cache of B prompts of P tokens grown to ``total``
     positions (into the decode cache the model holds for the shape, if it
     holds one), and the first greedy tokens."""
-    from repro_torch.serving import ServeEngine
-
     tokens = np.random.default_rng(seed).integers(1, model.cfg.vocab_size, (B, P))
     logits, cache = model.prefill({"tokens": tokens})
-    return ServeEngine._grow_cache(cache, P, total, model), logits.argmax(-1)
+    return model.grow_cache(cache, P, total), logits.argmax(-1)
 
 
 def _decode_paths(model):
@@ -836,13 +834,12 @@ def test_decode_graph_past_the_bound_releases_the_oldest(cuda):
 @pytest.mark.parametrize("where", ["ssm on the card", "dense on the CPU", "dense, a cache of its own",
                                    "dense, a short horizon"])
 @torch.no_grad()
-def test_decode_graph_engages_only_for_dense_on_one_card(cuda, where):
+def test_decode_graph_engages_only_for_dense_on_one_card(cuda, where, monkeypatch):
     """The graph takes a dense model's step on a cache the model holds, on
-    the card; an SSM, the CPU, a cache grown without the model, or a batch
+    the card; an SSM, the CPU, a cache the model does not hold, or a batch
     of fewer new positions than a capture repays decode eagerly and hold no
     cache."""
     from repro_torch.models.model import DECODE_GRAPH_MIN_NEW
-    from repro_torch.serving import ServeEngine
 
     model = _reduced_on(torch.device("cpu") if "CPU" in where else cuda,
                         "falcon-mamba-7b" if where.startswith("ssm") else "qwen2-0.5b")
@@ -850,7 +847,8 @@ def test_decode_graph_engages_only_for_dense_on_one_card(cuda, where):
     cache, tok = _graph_prefill(model, 2, 16, total, seed=1)
     if "of its own" in where:
         logits, own = model.prefill({"tokens": np.random.default_rng(1).integers(1, 100, (2, 16))})
-        cache, tok = ServeEngine._grow_cache(own, 16, total), logits.argmax(-1)
+        monkeypatch.setattr(model, "_held_cache", lambda *a: None)
+        cache, tok = model.grow_cache(own, 16, total), logits.argmax(-1)
     for step in range(3):
         logits, cache = model.decode_step(tok, cache, 16 + step)
         tok = logits.argmax(-1)
@@ -894,7 +892,7 @@ def test_decode_graph_serves_as_eager_engine(cuda, monkeypatch):
 
     model = _reduced_on(cuda)
     twin = copy.deepcopy(model)
-    monkeypatch.setattr(twin, "decode_cache", lambda *a: None)
+    monkeypatch.setattr(twin, "_held_cache", lambda *a: None)
     rng = np.random.default_rng(4)
     prompts = [rng.integers(1, model.cfg.vocab_size, n).tolist() for n in (40, 17, 40, 33, 40, 8, 9, 5)]
     max_new = [DECODE_GRAPH_MIN_NEW] * 6 + [DECODE_GRAPH_MIN_NEW + 3] * 2
@@ -1241,15 +1239,13 @@ def test_layered_serves_on_card_as_on_cpu_without_host_syncs(cuda):
     bf16 steps of the hidden states carried through the head); the decode
     steps make no host synchronisation (CUDA's sync debug mode raises on
     one) and route every pair."""
-    from repro_torch.serving import ServeEngine
-
     cfg = _layered_reduced()
     cpu, card = _lm_pair(cfg, cuda)
     tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 64))
     lc, cc = cpu.prefill({"tokens": tokens})
     lg, cg = card.prefill({"tokens": tokens})
     np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), atol=0.02, rtol=0)
-    cache = ServeEngine._grow_cache(cg, 64, 72, card)
+    cache = card.grow_cache(cg, 64, 72)
     cur = lg.argmax(-1)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1266,7 +1262,7 @@ def test_layered_serves_on_card_as_on_cpu_without_host_syncs(cuda):
 
 
 @torch.no_grad()
-def test_layered_decode_graph_replays_bitwise_as_eager_and_counts(cuda):
+def test_layered_decode_graph_replays_bitwise_as_eager_and_counts(cuda, monkeypatch):
     """The reduced granite stack in bf16, batch 4, prompt 64, a horizon of
     ``DECODE_GRAPH_MIN_NEW`` new positions: the steps on the cache the model
     holds (``ssm``, ``conv``, ``k``, ``v``) are captured once and replayed
@@ -1277,18 +1273,18 @@ def test_layered_decode_graph_replays_bitwise_as_eager_and_counts(cuda):
 
     from repro_torch.models import build_model
     from repro_torch.models.model import DECODE_GRAPH_MIN_NEW
-    from repro_torch.serving import ServeEngine
 
     cfg = _layered_reduced()
     model = build_model(cfg, cuda, generator=torch.Generator(cuda).manual_seed(0))
     twin = copy.deepcopy(model)
+    monkeypatch.setattr(twin, "_held_cache", lambda *a: None)
     P, N = 64, DECODE_GRAPH_MIN_NEW
     tokens = np.random.default_rng(7).integers(1, cfg.vocab_size, (4, P))
     first, cache = model.prefill({"tokens": tokens})
     same, own = twin.prefill({"tokens": tokens})
     assert torch.equal(first, same)
-    cache = ServeEngine._grow_cache(cache, P, P + N, model)
-    own = ServeEngine._grow_cache(own, P, P + N)
+    cache = model.grow_cache(cache, P, P + N)
+    own = twin.grow_cache(own, P, P + N)
     (entry,) = model._decode_graphs.values()
     assert set(cache) == {"ssm", "conv", "k", "v"} and entry.holds(cache)
     got, want, tok = [], [], first.argmax(-1)

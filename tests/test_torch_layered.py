@@ -81,9 +81,10 @@ def test_dropless_equals_a_loop_over_experts_where_capacity_drops():
 
 def test_moe_counters_accumulate_in_place():
     """Three decode calls of the dropless path under ``counting(...,
-    "decode")``: the device counters keep the tensors the first call made
-    (a step replayed from a CUDA graph adds into them) and read the sum (the
-    largest share: the maximum) of the calls counted one by one."""
+    "decode")``: every counter is a device tensor that keeps the tensor the
+    first call made (a step replayed from a CUDA graph adds into them) and
+    reads the sum (the largest share: the maximum) of the calls counted one
+    by one."""
     cfg = CUT.reduced()
     g = torch.Generator().manual_seed(3)
     p = {k: (torch.randn(s.shape, generator=g) * 0.05).to(s.dtype) for k, s in moe.moe_specs(cfg).items()}
@@ -95,9 +96,12 @@ def test_moe_counters_accumulate_in_place():
             with moe.counting(c, "decode"):
                 moe.moe_apply_dropless(p, cfg, x)
         each.append(one.read())
+        held = dict(total.totals, max_share=total.max_share)
         if i == 0:
-            used, share = total.experts_used["decode"], total.max_share
-        assert total.experts_used["decode"] is used and total.max_share is share
+            first = held
+        assert held.keys() == first.keys() and all(t is first[key] for key, t in held.items())
+    assert set(first) == {"pairs_routed", "max_share"} | {(key, "decode") for key in
+                                                          ("tokens", "gemm_calls", "experts_used")}
     got = total.read()
     assert got["moe_pairs_routed"] == sum(r["moe_pairs_routed"] for r in each) == 3 * 4 * cfg.experts_per_token
     assert got["moe_max_expert_share"] == max(r["moe_max_expert_share"] for r in each)
@@ -154,9 +158,7 @@ def test_default_softmax_scale_leaves_qwen2_logits_bitwise(monkeypatch):
     def run():
         logits, cache = model.prefill({"tokens": tokens})
         out = [logits]
-        from repro_torch.serving.engine import ServeEngine
-
-        cache = ServeEngine._grow_cache(cache, 64, 68, model)
+        cache = model.grow_cache(cache, 64, 68)
         for j in range(4):
             logits, cache = model.decode_step(logits.argmax(-1), cache, 64 + j)
             out.append(logits)

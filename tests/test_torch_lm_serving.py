@@ -81,7 +81,7 @@ def test_decode_steps_equal_reference(served):
 
 
 class _HeldCaches:
-    """``Model.decode_cache`` on the CPU, where the model holds none: every
+    """``Model._held_cache`` on the CPU, where the model holds none: every
     leaf of ``cache_specs`` (``k``, ``v``, an SSM state, a conv buffer) a
     (batch, horizon) shape, kept across batches and made full of NaN, so
     that a position or leaf the growth leaves unwritten poisons the step
@@ -100,8 +100,9 @@ class _HeldCaches:
 def test_held_decode_cache_serves_as_fresh_engines(served, monkeypatch):
     """One engine serves two batches of one shape, then one of another, each
     grown into the decode cache held for its shape: every batch gives the
-    tokens of a fresh engine on fresh caches and of the reference. On the
-    CPU the model itself holds no decode cache."""
+    tokens of a fresh engine on fresh caches and of the reference, in every
+    family (an SSM's state and conv leaves are copied into the held ones).
+    On the CPU the model itself holds no decode cache."""
     arch, (j_res, _), (_, t_eng) = served
     model = t_eng.model
     prompts = (_prompts(model.cfg.vocab_size, PROMPT_LENS, seed=len(arch))
@@ -109,13 +110,13 @@ def test_held_decode_cache_serves_as_fresh_engines(served, monkeypatch):
     max_new = MAX_NEW + [4, 4, 4]
     fresh = [r.tokens for i in range(0, len(prompts), 3)
              for r in _serve(ServeEngine(model, max_batch=3), Request, prompts[i:i + 3], max_new[i:i + 3])]
-    assert model.decode_cache(3, 9, 9 + 4) is None and not model._decode_graphs
+    assert model._held_cache(3, 9, 9 + 4) is None and not model._decode_graphs
     caches = _HeldCaches(model)
-    monkeypatch.setattr(model, "decode_cache", caches)
+    monkeypatch.setattr(model, "_held_cache", caches)
     held = [r.tokens for r in _serve(ServeEngine(model, max_batch=3), Request, prompts, max_new)]
     assert held == fresh
     assert held[:len(j_res)] == [r.tokens for r in j_res]
-    assert list(caches.held) == ([(3, 64 + 12), (3, 9 + 4)] if model.cfg.family != "ssm" else [])
+    assert list(caches.held) == [(3, 64 + 12), (3, 9 + 4)]
 
 
 def test_layered_held_decode_cache_serves_as_fresh_engines(monkeypatch):
@@ -133,9 +134,9 @@ def test_layered_held_decode_cache_serves_as_fresh_engines(monkeypatch):
     max_new = MAX_NEW + [4, 4, 4]
     fresh = [r.tokens for i in range(0, len(prompts), 3)
              for r in _serve(ServeEngine(model, max_batch=3), Request, prompts[i:i + 3], max_new[i:i + 3])]
-    assert model.decode_cache(3, 9, 9 + DECODE_GRAPH_MIN_NEW) is None and not model._decode_graphs
+    assert model._held_cache(3, 9, 9 + DECODE_GRAPH_MIN_NEW) is None and not model._decode_graphs
     caches = _HeldCaches(model)
-    monkeypatch.setattr(model, "decode_cache", caches)
+    monkeypatch.setattr(model, "_held_cache", caches)
     seen, decode = [], model.decode_step
     monkeypatch.setattr(model, "decode_step", lambda tok, cache, pos: seen.append(cache) or decode(tok, cache, pos))
     held = [r.tokens for r in _serve(ServeEngine(model, max_batch=3), Request, prompts, max_new)]
@@ -213,8 +214,8 @@ def _reference_greedy(jm, jp, prompts, max_new):
 ])
 def test_grow_cache_fault_reference_raises_port_serves(arch, lens, max_batch, error):
     """ROADMAP §3 item 6: the reference's ``_grow_cache`` pads every cache
-    leaf whose shape[-3] equals the prompt length P; the port grows only
-    ``k`` and ``v``."""
+    leaf whose shape[-3] equals the prompt length P; the port grows only the
+    leaves whose spec has the ``cache_seq`` axis."""
     jm, jp, tm = _models(arch, seed=4)
     prompts = _prompts(jm.cfg.vocab_size, lens, seed=11)
     with pytest.raises(TypeError, match=error):
@@ -228,49 +229,61 @@ def test_grow_cache_fault_reference_raises_port_serves(arch, lens, max_batch, er
         assert [r.tokens for r in port2] == [r.tokens for r in ref2] == port
 
 
-def test_grow_cache_grows_only_k_and_v():
-    P, total = 4, 9
-    cache = {"k": torch.ones(2, 4, P, 2, 8), "v": torch.ones(2, 4, P, 2, 8),
-             "ssm": torch.ones(2, 4, P, 2, 8), "conv": torch.ones(2, 4, P, 3, 8)}
-    grown = ServeEngine._grow_cache(cache, P, total)
-    assert grown["k"].shape == grown["v"].shape == (2, 4, total, 2, 8)
-    assert torch.equal(grown["k"][:, :, :P], cache["k"]) and not grown["k"][:, :, P:].any()
-    assert grown["ssm"] is cache["ssm"] and grown["conv"] is cache["conv"]
+# a reduced config of every family (the layered one from ``test_torch_layered``)
+GROW_ARCHS = {"dense": "qwen2-0.5b", "vlm": "llava-next-34b", "moe": "olmoe-1b-7b", "ssm": "falcon-mamba-7b",
+              "hybrid": "zamba2-2.7b", "layered": None, "encoder": "hubert-xlarge"}
 
 
-class _Holder:
-    """A model off a mesh that holds ``held`` as its decode cache."""
-    mesh = None
+@pytest.mark.parametrize("held", [True, False], ids=["held", "fresh"])
+@pytest.mark.parametrize("family", list(GROW_ARCHS))
+def test_grow_cache_grows_the_cache_seq_axis(family, held, monkeypatch):
+    """``Model.grow_cache`` on a prefill's cache, into the cache the model
+    holds for the shape (still full of a longer batch's 7.0) or into
+    ``init_cache``'s: a leaf whose spec has ``cache_seq`` takes the prompt
+    in its first P positions along it and zeros after; every other leaf (an
+    SSM state, a conv buffer) is copied whole; the batch is read along
+    ``act_batch``. An encoder has no cache and asks for none."""
+    if family == "layered":
+        from test_torch_layered import CUT
 
-    def __init__(self, held):
-        self.held, self.asked = held, []
-
-    def decode_cache(self, batch, P, total):
-        self.asked.append((batch, P, total))
-        return self.held
-
-
-def test_grow_cache_into_held_tensors_zeroes_past_the_prompt():
-    """Grown into held tensors (a model's decode cache, still holding a
-    longer batch's values), ``k`` and ``v`` take the prompt's values in their
-    first P positions and zeros after, as growing into new tensors gives;
-    no other leaf grows: each is copied whole into its held tensor, and
-    passes through where none is held."""
-    P, total = 4, 9
-    cache = {"k": torch.rand(2, 4, P, 2, 8), "v": torch.rand(2, 4, P, 2, 8),
-             "ssm": torch.rand(2, 4, P, 2, 8), "conv": torch.rand(2, 4, P, 3, 8)}
-    model = _Holder({name: torch.full((2, 4, total, 2, 8), 7.0) for name in ("k", "v")}
-                    | {name: torch.full_like(cache[name], 7.0) for name in ("ssm", "conv")})
-    grown = ServeEngine._grow_cache(cache, P, total, model)
-    fresh = ServeEngine._grow_cache(cache, P, total)
-    assert model.asked == [(4, P, total)]
-    for name in ("k", "v"):
-        assert grown[name] is model.held[name] and fresh[name] is not model.held[name]
-        assert torch.equal(grown[name], fresh[name]) and torch.equal(grown[name][:, :, :P], cache[name])
-        assert not grown[name][:, :, P:].any()
-    for name in ("ssm", "conv"):
-        assert grown[name] is model.held[name] and torch.equal(grown[name], cache[name])
-        assert fresh[name] is cache[name]
+        cfg = CUT.reduced()
+    else:
+        cfg = t_get_arch(GROW_ARCHS[family]).reduced()
+    model = t_build_model(cfg, "cpu", generator=torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(2)
+    B, S = 3, 8
+    if family == "encoder":
+        batch = {"frame_embeds": rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)}
+    else:
+        batch = {"tokens": rng.integers(1, cfg.vocab_size, (B, S))}
+    if family == "vlm":
+        batch["patch_embeds"] = rng.standard_normal((B, 8, cfg.d_model)).astype(np.float32)
+    _, cache = model.prefill(batch)
+    P = S + (8 if family == "vlm" else 0)
+    total = P + 5
+    asked, store = [], {}
+    if held:
+        store = {} if family == "encoder" else {n: torch.full(s.shape, 7.0, dtype=s.dtype)
+                                                 for n, s in model.cache_specs(B, total).items()}
+        monkeypatch.setattr(model, "_held_cache", lambda *a: asked.append(a) or store)
+    grown = model.grow_cache(cache, P, total)
+    if family == "encoder":
+        assert cache == grown == {} and not asked
+        return
+    specs = model.cache_specs(B, total)
+    assert set(grown) == set(cache) == set(specs)
+    assert asked == ([(B, P, total)] if held else [])
+    for name, t in cache.items():
+        got, spec = grown[name], specs[name]
+        assert (got.shape, got.dtype) == (spec.shape, spec.dtype), name
+        assert got is store[name] if held else got is not t
+        assert t.any(), name
+        if "cache_seq" in spec.axes:
+            seq = spec.axes.index("cache_seq")
+            assert torch.equal(got.narrow(seq, 0, P), t), name
+            assert not got.narrow(seq, P, total - P).any(), name
+        else:
+            assert torch.equal(got, t), name
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b"])

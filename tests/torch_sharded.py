@@ -53,7 +53,6 @@ def run_case(case: dict, device: torch.device) -> dict:
                                               place_model)
     from repro_torch.models import build_model
     from repro_torch.models.model import DECODE_GRAPH_MIN_NEW
-    from repro_torch.serving import ServeEngine
 
     cfg = dataclasses.replace(get_arch(case["arch"]).reduced(), **case.get("overrides", {}))
     mesh = make_mesh(case["mesh"], ("data", "model"), device.type)
@@ -81,13 +80,13 @@ def run_case(case: dict, device: torch.device) -> dict:
             prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in PROMPT_LENS]
             out["tokens"], out["ref_tokens"] = _serve(placed, prompts), _serve(ref, prompts)
             # one decode step's collectives, after a prefill of the same batch
-            cache = ServeEngine._grow_cache(cache, 16, 18, placed)
+            cache = placed.grow_cache(cache, 16, 18)
             nxt = got.full_tensor().argmax(-1)
             log = CollectiveLog()
             with CommDebugMode() as comm, log:
                 step_logits, _ = placed.decode_step(nxt, cache, 16)
             # the twin's step on the cache it holds (on the card, the graph's)
-            ref_cache = ServeEngine._grow_cache(ref.prefill(batch)[1], 16, 16 + DECODE_GRAPH_MIN_NEW, ref)
+            ref_cache = ref.grow_cache(ref.prefill(batch)[1], 16, 16 + DECODE_GRAPH_MIN_NEW)
             want_step = ref.decode_step(nxt, ref_cache, 16)[0]
             out["decode_err"] = float((step_logits.full_tensor() - want_step).abs().max())
             out["comm_counts"] = {str(k): v for k, v in comm.get_comm_counts().items()}
