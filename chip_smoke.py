@@ -7,7 +7,7 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. card   — print the card's name and power limit (nvidia-smi), build the
             CUDA kernels of ``src/repro_torch/csrc`` with nvcc for sm_90a
-            (one nvcc per source, all seven started together).
+            (one nvcc per source, all eight started together).
 2. kernels — hold each kernel against its plain PyTorch version on the card
             with ``torch.equal`` at the main path's shapes (CT, DX, US chunks,
             the bitmap combine of a 2^22-row scan and its ragged, K=1+1,
@@ -32,7 +32,10 @@ Phases, in order; any failure raises and exits non-zero:
             the encode) and scrub, phi_detect and bitmap at one block or word
             (the floor of a time taken this way). Then the
             staged scrub -> jls pair against the fused kernel at the CT chunk
-            (equal; both timed).
+            (equal; both timed). The decode-attention kernel, which replaces
+            no TPU kernel, against its plain version at the serve cells'
+            decode shapes, timed beside its bound, the plain version, SDPA
+            and a plain read of the same rows (``check_decode_attn``).
 3. pipeline — paths, each driven with the launch counts set to 0 just
             before it and read just after:
             the cold de-identification of a 256-slice CT, a DX and a US study
@@ -947,6 +950,61 @@ def check_jls_kernel(us_shape) -> dict:
     log(f"staged scrub -> jls vs fused at the CT chunk (32,512,512) u16, R=2: equal; "
         f"{json.dumps(pair)}")
     return {"jls": ct_row}
+
+
+# the serve cells' decode shapes: 32 rows, a 2,304-position cache, pos 2,303
+DECODE_ATTN_SHAPES = {"qwen2-0.5b": (32, 2304, 2, 7, 64, 1 / 8), "granite-4.0-h-small": (32, 2304, 8, 4, 128, 1 / 128)}
+
+
+def check_decode_attn() -> dict:
+    """The decode-attention kernel (it replaces no TPU kernel; its plain
+    version is ``models/attention.py::_decode_core``) against the plain
+    version at the serve cells' decode shapes in bf16, with q drawn so the
+    scores spread (standard deviation 2) and within 2^-6 of the largest
+    output (an output's bf16 rounding, up to 2^-7 of it, and a probability at
+    a bf16 rounding boundary rounding one ulp apart; the reasons in full:
+    ``tests/test_torch_decode_attn.py``), where a wrong KV head and the mean
+    of V must miss by 8 such limits or more; then timed there beside its
+    bound (the K/V rows up to pos, q and the output, at 3.35 TB/s), the plain
+    version and two yardsticks the port never calls:
+    ``F.scaled_dot_product_attention`` over the same positions, and one
+    PyTorch sum of each cache's rows up to pos (the same bytes read with no
+    arithmetic)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.models.attention import _decode_core
+
+    rows = {}
+    g = torch.Generator("cuda").manual_seed(30)
+    for name, (B, S, KV, G, hd, scale) in DECODE_ATTN_SHAPES.items():
+        k, v = (torch.randn(B, S, KV, hd, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+        q = (2 / (scale * hd ** 0.5) * torch.randn(B, KV, G, hd, generator=g, device="cuda")).to(torch.bfloat16)
+        pos = S - 1
+        got = decode_attn(q, k, v, pos, window=0, scale=scale)
+        plain = _decode_core(q, k, v, pos, 0, scale).to(torch.bfloat16).float()
+        limit = 2 ** -6 * plain.abs().max().item()
+        err = (got.float() - plain).abs().max().item()
+        faults = {"next_kv_head": _decode_core(q, k.roll(1, dims=2), v, pos, 0, scale).to(torch.bfloat16),
+                  "mean_of_v": v[:, :pos + 1].float().mean(1)[:, :, None, :].expand(q.shape)}
+        misses = {f: (wrong.float() - plain).abs().max().item() / limit for f, wrong in faults.items()}
+        if err > limit or min(misses.values()) <= 8:
+            raise AssertionError(f"decode_attn at {name}'s shape: error {err} against limit {limit}; "
+                                 f"planted faults miss by {misses} limits")
+        nbytes = 2 * B * (pos + 1) * KV * hd * 2 + 2 * q.numel() * 2
+        qh, kh, vh = q.reshape(B, KV * G, 1, hd), k[:, :pos + 1].transpose(1, 2), v[:, :pos + 1].transpose(1, 2)
+        row = {"shape": [B, S, KV, G, hd], "pos": pos, "max_abs_err": err, "limit": limit,
+               "err_over_limit": err / limit, "faults_over_limit": misses,
+               "ms": time_ms(lambda: decode_attn(q, k, v, pos, window=0, scale=scale)),
+               "bound_ms": bound(nbytes, 0)[0],
+               "plain_ms": time_ms(lambda: _decode_core(q, k, v, pos, 0, scale)),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale,
+                                                                            enable_gqa=True)),
+               "read_ms": time_ms(lambda: (k[:, :pos + 1].sum(), v[:, :pos + 1].sum()))}
+        row["pct_of_bound"] = 100 * row["bound_ms"] / row["ms"]
+        rows[name] = row
+        log(f"decode_attn at {name}'s decode shape: {json.dumps(row)}")
+    return rows
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1887,9 +1945,9 @@ def _lm_reduced_families() -> dict:
 def run_lm_path() -> dict:
     """Path (l), LM serving: qwen2-0.5b at full width in bf16 on the card
     (times against bounds), the same architecture in f32 card against CPU,
-    every family reduced card against CPU, and falcon-mamba at B == P. It
-    launches none of the port's kernels (plain PyTorch, like the reference's
-    plain jnp): the launch counts must not move."""
+    every family reduced card against CPU, and falcon-mamba at B == P. Its
+    decode steps launch the decode-attention kernel; the rest is plain
+    PyTorch, like the reference's plain jnp: no other launch count moves."""
     from repro_torch.kernels import LAUNCHES
 
     before = dict(LAUNCHES)
@@ -1902,8 +1960,11 @@ def run_lm_path() -> dict:
     fam = _lm_reduced_families()
     log(f"lm serving (l), reduced families, card against CPU (atol/rtol 1e-4; greedy tokens "
         f"equal): {json.dumps(fam)}")
-    assert dict(LAUNCHES) == before, f"path (l) launched port kernels: {before} -> {dict(LAUNCHES)}"
-    log(f"lm serving (l): {time.perf_counter() - t0:.1f} s; kernel launches unchanged")
+    launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    assert launched.pop("decode_attn") > 0 and not any(launched.values()), \
+        f"path (l) launched port kernels: {before} -> {dict(LAUNCHES)}"
+    log(f"lm serving (l): {time.perf_counter() - t0:.1f} s; kernel launches: decode_attn "
+        f"{LAUNCHES['decode_attn'] - before['decode_attn']}, no other")
     return {"bf16": bf16, "f32": f32, "families": fam}
 
 
@@ -2521,7 +2582,9 @@ def _sharded_rank(rank: int, world: int, init: str, fn_name: str, out_dir: str) 
                             device_id=torch.device("cuda", rank))
     try:
         result = globals()[fn_name](rank, world)
-        assert not any(LAUNCHES.values()), f"path (n) launched port kernels: {dict(LAUNCHES)}"
+        # the unsharded twins decode through the decode-attention kernel
+        assert not any(v for k, v in LAUNCHES.items() if k != "decode_attn"), \
+            f"path (n) launched port kernels: {dict(LAUNCHES)}"
     except Exception:  # recorded for the parent, which fails the path
         result = {"error": traceback.format_exc()}
     result["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -3293,6 +3356,7 @@ def main() -> None:
     rows.update(check_detector_kernels(us.datasets[0].pixels.shape))
     rows.update(check_bitmap_kernel())
     rows.update(check_jls_kernel(us.datasets[0].pixels.shape))
+    decode_attn_rows = check_decode_attn()
     pseudo = PseudonymService("IRB-SMOKE", TrustMode.POST_IRB, key=b"s" * 32)
 
     # the cold de-identification path (no detector); warm-up outside the
@@ -3393,7 +3457,7 @@ def main() -> None:
                         "pct_of_bound": 100 * row["bound_ms"] / row["ms"]})
     log(f"elapsed: {time.perf_counter() - t_start:.1f} s")
     print(card_line())
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "decode_attn": decode_attn_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

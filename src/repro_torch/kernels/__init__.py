@@ -11,6 +11,9 @@
             (``csrc/phi_detect.cu``)
   bitmap  - packed-bitmap predicate combine + popcount of the catalog's
             query engine (``csrc/bitmap.cu``)
+  decode_attn - one new token's attention against the bf16 or float32 K/V
+            cache, read in place (``csrc/decode_attn.cu``); replaces no TPU
+            kernel: its plain version is ``models/attention.py::_decode_core``
 
 A public op takes torch tensors: on a CUDA tensor it launches its kernel
 (or raises), on a CPU tensor it runs the plain PyTorch version. Each launch
@@ -23,7 +26,7 @@ from typing import Dict, Hashable
 
 LAUNCHES: Dict[str, int] = {
     "fused": 0, "rice_prepass": 0, "rice_len_rem": 0, "scrub": 0, "textdetect": 0, "phi_detect": 0,
-    "bitmap": 0, "jls": 0,
+    "bitmap": 0, "jls": 0, "decode_attn": 0,
 }
 
 

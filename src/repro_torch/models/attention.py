@@ -23,6 +23,8 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels.decode_attn.ops import decode_attn
+
 NEG_INF = -1e30
 # a decode step's position: an int, or a 0-d int64 tensor on the cache's
 # device (the CUDA-graph path's, filled before each replay)
@@ -251,7 +253,8 @@ def decode_attention(
     scale: Optional[float] = None,  # softmax scale; None: 1/sqrt(hd)
 ) -> torch.Tensor:
     """On DTensors the attention runs on each rank's shards of the cache
-    (``_decode_on_shards``)."""
+    (``_decode_on_shards``); on one device it is the ``decode_attn`` op:
+    the CUDA kernel on the card, ``_decode_core`` on the CPU."""
     from repro_torch.launch.act_sharding import constrain, merge_dims, split_dim
 
     B, S, KV, hd = k_cache.shape
@@ -264,7 +267,7 @@ def decode_attention(
     if isinstance(k_cache, DTensor):
         out = _decode_on_shards(qg, k_cache, v_cache, pos, window, scale)
     else:
-        out = _decode_core(qg, k_cache, v_cache, pos, window, scale)
+        out = decode_attn(qg, k_cache, v_cache, pos, window=window, scale=scale)
     out = constrain(out, "decode_q")
     return merge_dims(out, 1).to(q.dtype)
 

@@ -47,6 +47,12 @@ from repro_torch.kernels.scrub.ref import scrub_ref
 from repro_torch.kernels.textdetect import cases as text_cases
 from repro_torch.kernels.textdetect.ops import tile_profiles
 from repro_torch.kernels.textdetect.ref import tile_profiles_torch
+from test_torch_decode_attn import CASES as DECODE_ATTN_CASES
+from test_torch_decode_attn import FAULT_MARGIN as DECODE_ATTN_FAULT_MARGIN
+from test_torch_decode_attn import assert_within_limit as decode_attn_within_limit
+from test_torch_decode_attn import draw as decode_attn_draw
+from test_torch_decode_attn import oracle as decode_attn_oracle
+from test_torch_decode_attn import planted_faults as decode_attn_faults
 
 pytestmark = pytest.mark.gpu
 
@@ -693,7 +699,11 @@ def test_lm_reduced_on_card_equals_cpu(cuda, arch):
         prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (64, 17, 40, 33, 64, 8)]
         max_new = [12, 12, 5, 12, 7, 12]
         assert _lm_serve(card, prompts, max_new, 3) == _lm_serve(cpu, prompts, max_new, 3)
-    assert dict(LAUNCHES) == before  # the LM path launches none of the port's kernels
+    # the LM path launches the decode-attention kernel, where a served step
+    # attends, and none of the port's other kernels
+    launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    attends = arch in LM_SERVE_ARCHS and cfg.family != "ssm"
+    assert (launched.pop("decode_attn") > 0) == attends and not any(launched.values()), launched
 
 
 def test_lm_full_width_f32_prefill_on_card_equals_cpu(cuda):
@@ -771,8 +781,9 @@ def _reduced_on(device, arch="qwen2-0.5b"):
 def test_decode_graph_replays_bitwise_as_eager_at_full_width(cuda):
     """qwen2-0.5b at its widths in bf16, batch 4, a 300-token horizon: 20
     steps through the graph (one capture, 19 replays) against the same steps
-    of ``_decode_step`` called directly, bit for bit in logits and caches;
-    a second cache shape captures a second graph."""
+    of ``_decode_step`` called directly, bit for bit in logits and caches,
+    the decode-attention kernel launched by the capture and replayed by the
+    graph; a second cache shape captures a second graph."""
     from repro_torch.config import get_arch
     from repro_torch.models import build_model
     from repro_torch.models.model import DECODE_GRAPH_MIN_NEW
@@ -783,7 +794,12 @@ def test_decode_graph_replays_bitwise_as_eager_at_full_width(cuda):
     eager = {name: t.clone() for name, t in cache.items()}
     first = None
     for step in range(20):
+        before = LAUNCHES["decode_attn"]
         got, cache = model.decode_step(tok, cache, P + step)
+        # the capture's eager run and its recording each launch the
+        # decode-attention kernel once a layer; a replay launches it through
+        # the graph, with no count on the host
+        assert LAUNCHES["decode_attn"] - before == (2 * model.cfg.n_layers if step == 0 else 0), step
         want, eager = model._decode_step(tok, eager, P + step)
         assert torch.equal(got, want), step
         assert all(torch.equal(cache[n], eager[n]) for n in ("k", "v")), step
@@ -907,6 +923,51 @@ def test_decode_graph_serves_as_eager_engine(cuda, monkeypatch):
     steps = 2 * (DECODE_GRAPH_MIN_NEW - 1) + DECODE_GRAPH_MIN_NEW + 2
     assert _decode_paths(model) == (2, steps - 2, 0) and _decode_paths(twin) == (0, 0, steps)
     assert sorted(model._decode_graphs) == [(2, 9 + DECODE_GRAPH_MIN_NEW + 3), (3, 40 + DECODE_GRAPH_MIN_NEW)]
+
+
+# --------------------------------------------- the decode-attention kernel
+@pytest.mark.parametrize("case", list(DECODE_ATTN_CASES))
+@torch.no_grad()
+def test_decode_attn_kernel_equals_plain_version_and_oracle(cuda, case):
+    """The kernel against ``_decode_core`` on the card and against a float64
+    oracle of the same formula, within a share of the largest output (the
+    limit's reasons and its planted faults: ``tests/test_torch_decode_attn.py``);
+    a wrong KV head or the mean of V misses it by far at this case's inputs;
+    two calls give the same bits, and so does ``pos`` read from a 0-d tensor
+    on the card (a captured step's)."""
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.models.attention import _decode_core
+
+    B, S, KV, G, hd, dtype, pos, window, scale = DECODE_ATTN_CASES[case]
+    scale = 1 / math.sqrt(hd) if scale is None else scale
+    q, k, v = decode_attn_draw(B, S, KV, G, hd, dtype, scale, seed=len(case), device=cuda)
+    before = LAUNCHES["decode_attn"]
+    got = decode_attn(q, k, v, pos, window=window, scale=scale)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(decode_attn(q, k, v, pos, window=window, scale=scale), got)
+    at = torch.tensor(pos, dtype=torch.int64, device=cuda)
+    assert torch.equal(decode_attn(q, k, v, at, window=window, scale=scale), got)
+    assert LAUNCHES["decode_attn"] - before == 3
+    plain = _decode_core(q, k, v, pos, window, scale).to(dtype)
+    tol = decode_attn_within_limit(got, plain, decode_attn_oracle(q, k, v, pos, window, scale))
+    for name, wrong in decode_attn_faults(q, k, v, pos, window, scale).items():
+        assert (wrong.float() - plain.float()).abs().max().item() > DECODE_ATTN_FAULT_MARGIN * tol, name
+
+
+def test_decode_attn_kernel_refuses_what_it_cannot_run(cuda):
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+
+    q, k, v = decode_attn_draw(2, 64, 2, 3, 32, torch.bfloat16, 0.25, seed=0, device=cuda)
+    cut = [t[..., :24].contiguous() for t in (q, k, v)]
+    with pytest.raises(ValueError, match="multiple of 16"):
+        decode_attn(*cut, 5, window=0, scale=0.25)
+    with pytest.raises(TypeError, match="one type"):
+        decode_attn(q.float(), k, v, 5, window=0, scale=0.25)
+    wide = torch.cat([k, k], dim=-1)[..., :32]
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attn(q, wide, wide, 5, window=0, scale=0.25)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        decode_attn(q.cpu(), k, v, 5, window=0, scale=0.25)
 
 
 # -------------------------------------------------------------- LM training
